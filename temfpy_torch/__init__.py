@@ -8,9 +8,11 @@ against; module names match it so each counterpart is easy to find.
 This package imports torch, numpy and scipy, and never jax.
 
 Ported so far: the Slater -> finite MPS path (``slater.H_to_MPS`` /
-``slater.C_to_MPS``), the charge-labelled MPS engine it needs
-(:mod:`temfpy_torch.mps`), and the two hand-written CUDA kernels of that
-path (:mod:`temfpy_torch.ops.kernels`).
+``slater.C_to_MPS``), the BdG/Pfaffian -> finite MPS path
+(``pfaffian.H_to_MPS`` / ``pfaffian.C_to_MPS``), the charge-labelled MPS
+engine they need (:mod:`temfpy_torch.mps`), and the four hand-written CUDA
+kernels of those paths (:mod:`temfpy_torch.ops.kernels`).  The entry points
+run on the card unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
@@ -19,6 +21,7 @@ __all__ = [
     "config",
     "mps",
     "ops",
+    "pfaffian",
     "profiling",
     "schmidt_utils",
     "slater",

@@ -24,5 +24,22 @@ DIAG_TOL = 1e-8
 
 
 def default_device() -> torch.device:
-    """``cuda`` when a card is present, else ``cpu``."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The device of an entry point called with ``device=None`` on host
+    (numpy) input: ``cuda``.  Raises :class:`RuntimeError` where torch sees
+    no card; the CPU runs only when the caller passes ``device="cpu"``."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "temfpy_torch runs on an NVIDIA GPU by default, and torch sees none "
+            "(torch.cuda.is_available() is False); pass device=\"cpu\" to run on the CPU"
+        )
+    return torch.device("cuda")
+
+
+def resolve_device(x, device) -> torch.device:
+    """The device an entry point runs on: ``device`` if given, else the
+    device of a tensor argument ``x``, else :func:`default_device`."""
+    if device is not None:
+        return torch.device(device)
+    if isinstance(x, torch.Tensor):
+        return x.device
+    return default_device()

@@ -1,12 +1,13 @@
 """Build and load the hand-written CUDA kernels of :mod:`temfpy_torch`.
 
 At first use, every ``temfpy_torch/csrc/*.cu`` is compiled by ``nvcc`` for
-``sm_90a`` (Hopper) into one shared library with a plain C interface, which
-is loaded with :mod:`ctypes`.  The library goes to ``temfpy_torch/_build/``
-under a name that carries a hash of the sources, so an edited source is
-rebuilt and an unchanged one is reused.  Nothing is built when a module is
-imported; a missing ``nvcc`` raises :class:`RuntimeError` naming the
-command.
+``sm_90a`` (Hopper), one ``nvcc`` process per source, all started together,
+and the objects are linked into one shared library with a plain C
+interface, which is loaded with :mod:`ctypes`.  The library goes to
+``temfpy_torch/_build/`` under a name that carries a hash of the sources,
+so an edited source is rebuilt and an unchanged one is reused.  Nothing is
+built when a module is imported; a missing ``nvcc`` raises
+:class:`RuntimeError` naming the commands.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ DEFAULT_CUDA_HOME = Path("/usr/local/cuda")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _lock = threading.Lock()
@@ -47,6 +48,11 @@ _SIGNATURES = {
     # colk, kindk, rowk, signk, mb, kb, right_mode, det_out, S_out, stream
     "tf_site_overlap_schur": [_i, _vp, _vp] + [_i] * 4 + [_vp] * 8 + [_i] * 3
     + [_vp] * 3,
+    # V1h, V2h, j1, j2, thresh, G, nb, k1, k2, N_out, norm_out, stream
+    "tf_bdg_overlap": [_vp] * 5 + [_i] * 4 + [_vp] * 3,
+    # N, norm, pos_b, pos_k, cnt_b, cnt_k, pr, pc, tab0, tab1, tab2, out,
+    # G, m, width, wt, R_b, K_b, P_b, n0, n1, n2, sel, D0p1, D1, D2, stream
+    "tf_pf_fill": [_vp] * 12 + [_i] * 14 + [_vp],
 }
 
 
@@ -75,9 +81,13 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def nvcc_command(nvcc: str, out: Path) -> list[str]:
-    return [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out),
-            *(str(p) for p in sources())]
+def nvcc_commands(nvcc: str, out: Path, objdir: Path) -> tuple[list[list[str]], list[str]]:
+    """(one compile command per source, the link command) building ``out``
+    with objects in ``objdir``."""
+    objs = [objdir / (p.stem + ".o") for p in sources()]
+    compiles = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(o), str(p)]
+                for p, o in zip(sources(), objs)]
+    return compiles, [nvcc, *NVCC_FLAGS, "-shared", "-o", str(out), *map(str, objs)]
 
 
 def build() -> Path:
@@ -90,22 +100,31 @@ def build() -> Path:
         return target
     nvcc = find_nvcc()
     if nvcc is None:
-        cmd = " ".join(nvcc_command("nvcc", target))
+        compiles, link = nvcc_commands("nvcc", target, BUILD_DIR)
+        cmds = "; ".join(" ".join(c) for c in compiles + [link])
         raise RuntimeError(
             "building the temfpy_torch CUDA kernels needs nvcc, which was not "
-            f"found (CUDA_HOME, PATH, {DEFAULT_CUDA_HOME}); the command is: {cmd}"
+            f"found (CUDA_HOME, PATH, {DEFAULT_CUDA_HOME}); the commands are: {cmds}"
         )
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = nvcc_command(nvcc, Path(tmp))
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, target)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        tmp = Path(work) / target.name
+        compiles, link = nvcc_commands(nvcc, tmp, Path(work))
+        procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                        text=True)) for cmd in compiles]
+        failed = []
+        for cmd, proc in procs:
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}")
+        if not failed:
+            proc = subprocess.run(link, capture_output=True, text=True)
+            if proc.returncode != 0:
+                failed.append(f"link failed ({proc.returncode}): {' '.join(link)}\n"
+                              f"{proc.stdout}\n{proc.stderr}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        os.replace(tmp, target)
     build_seconds = time.perf_counter() - t0
     return target
 

@@ -6,11 +6,11 @@ Counterpart of the main-path subset of :mod:`temfpy_tpu.ops.linalg`:
   principal blocks of a Hermitian matrix in one batched, padded ``eigh``;
 - :func:`block_svd`: completion of an SVD known up to rotations inside
   degenerate blocks;
-- :func:`lu_det` and :func:`gauss_solve_det`: LU / Gauss-Jordan with partial
-  pivoting, written out step by step.  They are the plain twins of the CUDA
-  kernels in :mod:`temfpy_torch.ops.kernels` and follow the JAX package's
-  batch-first bodies (``_lu_det_body``, the explicit branch of
-  ``gauss_solve_det``) pivot for pivot.
+- :func:`lu_det`, :func:`gauss_solve_det` and :func:`gauss_inverse`: LU /
+  Gauss-Jordan with partial pivoting, written out step by step.  They are
+  the plain twins of the CUDA kernels in :mod:`temfpy_torch.ops.kernels`
+  and follow the JAX package's batch-first bodies (``_lu_det_body``, the
+  explicit branch of ``gauss_solve_det``) pivot for pivot.
 
 Not ported (TPU workarounds): the host-eigh routing (``_eigh_blocks_host``,
 ``_use_host_eigh``, ``_back_like``), the batch-last layouts with implicit
@@ -165,6 +165,15 @@ def gauss_solve_det(A: torch.Tensor, B: torch.Tensor):
         M -= factors[:, :, None] * row[:, None, :]
         M[:, k, :] = row
     return det.reshape(tuple(batch)), M[:, :, n:].reshape(*batch, n, r)
+
+
+def gauss_inverse(A: torch.Tensor) -> torch.Tensor:
+    """Inverses of a (..., n, n) batch by Gauss-Jordan with partial
+    pivoting: :func:`gauss_solve_det` against the identity
+    (``temfpy_tpu.ops.linalg.gauss_inverse``)."""
+    n = A.shape[-1]
+    eye = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape)
+    return gauss_solve_det(A, eye)[1]
 
 
 # --------------------------------------------------------------------------

@@ -21,9 +21,11 @@ package's docstrings do.  The path:
    charge-matching (bra, ket) pair, scattered into the dense site tensor).
 4. The tensors land in :class:`temfpy_torch.mps.MPS`.
 
-Every device array lives on the device of the correlation matrix (the
-``device`` argument of the entry points: ``cuda`` if present, else ``cpu``).
-On the CPU the two device entry points run their plain PyTorch twins.
+Every device array lives on the device of the correlation matrix: the
+``device`` argument of the entry points, else the device of a tensor
+argument, else ``cuda`` (:func:`temfpy_torch.config.default_device`, which
+raises where there is no card: the CPU runs only on ``device="cpu"``).  On
+the CPU the two device entry points run their plain PyTorch twins.
 
 Not ported (TPU workarounds of the JAX package): ``_take_frame``,
 ``_slice_flat``/``_slice_flat_group``, ``_unstack`` and the fused
@@ -48,7 +50,7 @@ import torch
 
 from . import profiling
 from .config import DIAG_TOL as _DIAG_TOL
-from .config import default_device
+from .config import resolve_device
 from .mps import MPS, FermionSite
 from .ops.kernels import det_fill, site_overlap_schur
 from .ops.linalg import block_svd, eigh_blocks
@@ -931,16 +933,16 @@ def build_site_tensors(pairs):
 
 
 def _to_device(x, device) -> torch.Tensor:
+    dev = resolve_device(x, device)
     if isinstance(x, torch.Tensor):
-        return x if device is None else x.to(device)
-    return torch.as_tensor(np.asarray(x), device=device if device is not None
-                           else default_device())
+        return x.to(dev)
+    return torch.as_tensor(np.asarray(x), device=dev)
 
 
 def correlation_matrix(H, N: int | None = None, *, device=None):
     r"""Ground-state correlation matrix C_ij = <c_j^dagger c_i> of a
     mean-field Hamiltonian (reference slater.py:1150-1180): one ``eigh``
-    on ``device`` (default: H's device for a tensor, else
+    on ``device`` (default: H's device for a tensor, else ``cuda``,
     :func:`~temfpy_torch.config.default_device`).  Returns (C, N); a
     complex C whose imaginary part is below 1e-14 becomes real."""
     H = _to_device(H, device)
@@ -999,7 +1001,7 @@ def C_to_MPS(C, trunc_par, *, diag_tol: float = _DIAG_TOL, ortho_center: int | N
     matrix (reference slater.py:1216-1353).
 
     ``C`` (numpy or tensor) moves to ``device`` (default: C's device for a
-    tensor, else ``cuda`` if present, else ``cpu``).  The center cut is
+    tensor, else ``cuda``; ``device="cpu"`` runs the kernels' twins).  The center cut is
     decomposed first; then each half is streamed in blocks of
     ``eigh_chunk`` cuts: one batched eigh, the Schmidt enumeration on the
     host, and the grouped site kernels.  The result is in mixed canonical
@@ -1071,4 +1073,4 @@ def H_to_MPS(H, trunc_par, *, diag_tol: float = _DIAG_TOL, ortho_center: int | N
     (reference slater.py:1568-1627), on ``device`` (see :func:`C_to_MPS`)."""
     C, _ = correlation_matrix(H, device=device)
     return C_to_MPS(C, trunc_par, diag_tol=diag_tol, ortho_center=ortho_center,
-                    spinful=spinful, unit_cell_width=unit_cell_width)
+                    spinful=spinful, unit_cell_width=unit_cell_width, device=device)

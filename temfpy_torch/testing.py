@@ -115,7 +115,8 @@ def check_schmidt_decomposition(modes, C, diag_tol: float = _DIAG_TOL):
 
     Checks that vL/vR are unitary, that they diagonalise the diagonal blocks
     C_LL / C_RR, and that the entangled modes SVD the offdiagonal block C_LR.
-    Works for both Slater (:class:`temfpy_torch.slater.SchmidtModes`) mode objects via
+    Works for both Slater (:class:`temfpy_torch.slater.SchmidtModes`) and
+    Pfaffian (:class:`temfpy_torch.pfaffian.SchmidtModes`) mode objects via
     their common interface (`vL`, `vR`, `eigenvalues`, `vL_entangled`,
     `vR_entangled`, `singular_values`).
     """
@@ -250,3 +251,146 @@ def random_site_overlap_case(seed: int, *, G: int, L: int, kb: int, sb: int,
     signk = rng.choice([-1.0, 1.0], size=(G, mb))
     args = (fb, fk, col, kind, row, signb, col.copy(), kind.copy(), row.copy(), signk)
     return args, {"kb": kb, "mode": mode}
+
+
+def pip_hamiltonian(W: int, Lx: int, t: float = 1.0, delta: float = 0.5, mu: float = -0.3):
+    """BdG Hamiltonian (complex-fermion basis "C") of the chiral p+ip
+    superconductor on a W-leg cylinder of length Lx, as bench.py config 5
+    builds it (bench.py:105-154; there W=8, Lx=16): hopping t and p_x pairing
+    delta along the axis, hopping t and i p_y pairing i*delta around the
+    circumference (periodic for W > 2), chemical potential mu."""
+    L = W * Lx
+    H = np.zeros((2 * L, 2 * L), complex)
+
+    def idx(x, y):
+        return x * W + (y % W)
+
+    def add_hop(i, j, amp):
+        H[2 * i, 2 * j] += -amp / 2
+        H[2 * j, 2 * i] += -np.conj(amp) / 2
+        H[2 * i + 1, 2 * j + 1] += np.conj(amp) / 2
+        H[2 * j + 1, 2 * i + 1] += amp / 2
+
+    def add_pair(i, j, amp):  # amp c_i^dag c_j^dag + h.c.
+        H[2 * i, 2 * j + 1] += amp / 2
+        H[2 * j + 1, 2 * i] += np.conj(amp) / 2
+        H[2 * j, 2 * i + 1] += -amp / 2
+        H[2 * i + 1, 2 * j] += -np.conj(amp) / 2
+
+    for x in range(Lx):
+        for y in range(W):
+            i = idx(x, y)
+            H[2 * i, 2 * i] = -mu / 2
+            H[2 * i + 1, 2 * i + 1] = mu / 2
+            if x + 1 < Lx:
+                add_hop(i, idx(x + 1, y), t)
+                add_pair(i, idx(x + 1, y), delta)
+            if W > 2:
+                add_hop(i, idx(x, y + 1), t)
+                add_pair(i, idx(x, y + 1), 1j * delta)
+    return H + H.conj().T - np.diag(np.diag(H).real)
+
+
+def random_pf_fill_case(seed: int, *, G: int, w: int, m: int, P: int, spec: str = "rrc",
+                        n_rows: int = 256):
+    """Seeded inputs of :func:`temfpy_torch.ops.kernels.pf_fill` shaped like
+    one fill group of the Pfaffian path: ``G`` sites, antisymmetric complex
+    N (m, m), ``n_rows`` bra and ket bond rows with up to w/2 excitations
+    each (ket positions in [0, m/2), bra positions in [m/2, m); the last
+    row of each table a count-0 pad row), ``P`` distinct parity-matching
+    pairs padded to a power of two >= 256, and injective scatter tables of
+    layout ``spec``.  Returns (args, kwargs) as numpy."""
+    rng = np.random.default_rng(seed)
+    R = K = n_rows
+    half = w // 2
+
+    def tables(lo, hi):
+        cnt = rng.integers(0, half + 1, R).astype(np.int32)
+        cnt[: min(R - 1, 8)] = half  # some rows reach the full width
+        cnt[-1] = 0
+        pos = np.zeros((R, w), np.int32)
+        for r in range(R):
+            pos[r, : cnt[r]] = np.sort(rng.choice(np.arange(lo, hi), size=cnt[r], replace=False))
+        return pos, cnt
+
+    pos_k, cnt_k = tables(0, m // 2)
+    pos_b, cnt_b = tables(m // 2, m)
+    rr, cc = np.meshgrid(np.arange(R - 1), np.arange(K - 1), indexing="ij")
+    ok = (cnt_b[rr] + cnt_k[cc]) % 2 == 0
+    cand = np.flatnonzero(ok)
+    if P > cand.size:
+        raise ValueError(f"only {cand.size} parity-matching pairs, asked for {P}")
+    flat = rng.choice(cand, size=P, replace=False)
+    P_b = 256
+    while P_b < P:
+        P_b *= 2
+    pr = np.full(P_b, R - 1, np.int32)
+    pc = np.full(P_b, K - 1, np.int32)
+    pr[:P], pc[:P] = rr.ravel()[flat], cc.ravel()[flat]
+    hr = R // 2
+    row_a = np.arange(R, dtype=np.int32) // 2
+    row_b = np.arange(R, dtype=np.int32) % 2
+    col = np.arange(K, dtype=np.int32)
+    if spec == "rrc":
+        row_a[-1] = hr
+        tabs, shape = (row_a, row_b, col), (hr, 2, K)
+    elif spec == "crr":
+        tabs, shape = (col, row_b, row_a), (K - 1, 2, hr)
+    elif spec == "rc":
+        tabs, shape = (np.arange(R, dtype=np.int32), col, np.zeros(1, np.int32)), (R - 1, K)
+    else:
+        raise ValueError(spec)
+    A = rng.normal(size=(G, m, m)) + 1j * rng.normal(size=(G, m, m))
+    N = (A - A.transpose(0, 2, 1)) * (0.5 / m**0.5)
+    norm = 0.5 + rng.random(G)
+    stack = lambda a: np.stack([a] * G)  # noqa: E731
+    args = (N, norm, stack(pos_b), stack(pos_k), stack(cnt_b), stack(cnt_k), stack(pr),
+            stack(pc), tuple(stack(t) for t in tabs))
+    return args, {"width": w, "spec": spec, "shape": shape}
+
+
+def random_bdg_overlap_case(seed: int, *, G: int, nb: int, k1: int, k2: int,
+                            x: int | None = None, angle: float = 0.3, mode: str | None = None):
+    """Seeded inputs of :func:`temfpy_torch.ops.kernels.bdg_overlap` shaped
+    like one overlap group of the Pfaffian path: per site a random Nambu
+    unitary V1 of half size ``x`` (default nb - 3, at least 1) in the
+    complex-fermion basis, V2 = V1 rotated by a random SO(2x) Majorana
+    rotation of scale ``angle`` (same vacuum parity, so the vacua overlap),
+    both vacuum-padded to ``nb`` and cut to their annihilator halves;
+    ``k1``/``k2`` index slots, the last two zero padding as the planner
+    pads them, laid out as the planner's ``mode`` lays them out ("right":
+    the first modes of the half, j2 reversed; "left": the last ones, j2
+    reversed; None: random); the norm guard for min_SV = 1e-6.  Returns
+    args as numpy."""
+    from scipy.linalg import expm
+
+    from .pfaffian import _pad_nambu_modes, vector_M2C
+
+    rng = np.random.default_rng(seed)
+    x = max(1, nb - 3) if x is None else x
+
+    def nambu(O):
+        a = (O[:, 0::2] + 1j * O[:, 1::2]) / 2**0.5
+        V = vector_M2C(np.concatenate([a, a.conj()], axis=1))
+        return _pad_nambu_modes(V, nb)[:, :nb]
+
+    V1, V2, J1, J2 = [], [], [], []
+    for _ in range(G):
+        O1 = np.linalg.qr(rng.normal(size=(2 * x, 2 * x)))[0]
+        A = rng.normal(size=(2 * x, 2 * x)) * angle / (2 * x) ** 0.5
+        O2 = O1 @ expm(A - A.T)
+        V1.append(nambu(O1))
+        V2.append(nambu(O2))
+        for J, k in ((J1, k1), (J2, k2)):
+            j = np.zeros(k, np.int32)
+            n_real = max(1, min(x, k - 2))
+            if mode is None:
+                j[:n_real] = rng.choice(x, size=n_real, replace=False)
+            else:
+                first = 0 if mode == "right" else x - n_real
+                j[:n_real] = first + np.arange(n_real)
+                if J is J2:
+                    j[:n_real] = j[:n_real][::-1]
+            J.append(j)
+    thresh = np.full(G, max(1e-6**x, 1e-300))
+    return np.stack(V1), np.stack(V2), np.stack(J1), np.stack(J2), thresh

@@ -6,14 +6,15 @@ a fixture, at run time).  Run on a machine with a card with
     PYTHONPATH=.:tests python -m pytest tests/test_torch_cuda.py -q
 
 Tolerance 1e-12 relative to the largest entry: kernel and twin run the
-same float64 pivoted elimination and differ only in summation order.
+same float64 / complex128 pivoted elimination and differ only in summation
+order.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from temfpy_torch import slater, testing
+from temfpy_torch import pfaffian, slater, testing
 from temfpy_torch.ops import kernels
 
 pytestmark = pytest.mark.cuda
@@ -86,3 +87,53 @@ def test_conversion_on_cuda_matches_cpu(cuda):
     cpu = slater.H_to_MPS(H, tp, device="cpu")
     f = abs(gpu.overlap(cpu)) / np.sqrt(gpu.norm_squared() * cpu.norm_squared())
     assert f >= 1 - 1e-10
+
+
+@pytest.mark.parametrize("w", [4, 8, 12, 16, 32])
+@pytest.mark.parametrize("spec", ["rc", "rrc", "crr"])
+def test_pf_fill_kernel_matches_twin(cuda, w, spec):
+    """Widths of the main path and 32; fewer real pairs than P_b, so pad
+    pairs reach the trash row."""
+    args, kw = testing.random_pf_fill_case(w, G=3, w=w, m=max(2 * w, 24), P=3000, spec=spec,
+                                           n_rows=128)
+    a = [torch.as_tensor(x, device=cuda) for x in args[:8]]
+    a.append(tuple(torch.as_tensor(t, device=cuda) for t in args[8]))
+    before = kernels.pf_fill.launches
+    got = kernels.pf_fill(*a, **kw)
+    assert kernels.pf_fill.launches == before + 1
+    assert _rel(got, kernels.pf_fill_plain(*a, **kw)) <= RTOL
+
+
+@pytest.mark.parametrize("nb,k1,k2,x", [(8, 8, 8, 5), (32, 16, 8, 30), (32, 24, 24, 17),
+                                        (64, 24, 24, 61), (64, 16, 24, 40)])
+def test_bdg_overlap_kernel_matches_twin(cuda, nb, k1, k2, x):
+    c = [torch.as_tensor(a, device=cuda)
+         for a in testing.random_bdg_overlap_case(nb, G=5, nb=nb, k1=k1, k2=k2, x=x)]
+    before = kernels.bdg_overlap.launches
+    N, norm = kernels.bdg_overlap(*c)
+    assert kernels.bdg_overlap.launches == before + 1
+    N0, norm0 = kernels.bdg_overlap_plain(*c)
+    assert _rel(N, N0) <= RTOL and _rel(norm, norm0) <= RTOL
+
+
+def test_bdg_overlap_guard_poisons_the_norm(cuda):
+    """A threshold above |det U| gives NaN, as the twin does."""
+    c = [torch.as_tensor(a, device=cuda)
+         for a in testing.random_bdg_overlap_case(1, G=2, nb=8, k1=8, k2=8)]
+    c[4] = torch.tensor([2.0, 0.0], dtype=torch.float64, device=cuda)
+    _N, norm = kernels.bdg_overlap(*c)
+    assert bool(torch.isnan(norm[0])) and bool(torch.isfinite(norm[1]))
+    assert bool(torch.isnan(kernels.bdg_overlap_plain(*c)[1][0]))
+
+
+def test_pfaffian_conversion_on_cuda_matches_cpu(cuda):
+    H = testing.pip_hamiltonian(4, 4)
+    tp = {"chi_max": 32}
+    kernels.pf_fill.launches = kernels.bdg_overlap.launches = 0
+    gpu = pfaffian.H_to_MPS(H, tp, basis="C", device=cuda)
+    assert kernels.pf_fill.launches > 0 and kernels.bdg_overlap.launches > 0
+    cpu = pfaffian.H_to_MPS(H, tp, basis="C", device="cpu")
+    f = abs(gpu.overlap(cpu)) / np.sqrt(gpu.norm_squared() * cpu.norm_squared())
+    assert f >= 1 - 1e-10
+    for b in range(gpu.L + 1):
+        np.testing.assert_array_equal(gpu.q_bond[b], cpu.q_bond[b])

@@ -17,14 +17,19 @@ def test_port_imports_and_runs_without_jax():
         import sys
         import numpy as np
         import temfpy_torch
-        from temfpy_torch import config, mps, profiling, schmidt_utils, slater, testing, utils
+        from temfpy_torch import (config, mps, pfaffian, profiling, schmidt_utils, slater,
+                                  testing, utils)
         from temfpy_torch.mps import io
         from temfpy_torch.ops import _build, kernels, linalg
+        from temfpy_torch.ops import pfaffian as ops_pfaffian
 
         H = np.diag(-np.ones(7), 1)
         H = H + H.T
         state = slater.H_to_MPS(H, {"chi_max": 16}, device="cpu")
         assert abs(state.norm_squared() - 1) < 1e-10
+        bdg = pfaffian.H_to_MPS(testing.pip_hamiltonian(2, 3), {"chi_max": 16}, basis="C",
+                                device="cpu")
+        assert abs(bdg.norm_squared() - 1) < 1e-10
         bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "temfpy_tpu")))
         assert not bad, bad
         print("ok")
