@@ -58,3 +58,40 @@ struct Num<c128> {
 
 // dtype codes passed from Python
 enum { TF_F64 = 0, TF_C128 = 1 };
+
+// Block-wide pivot choice: every thread offers (v, i) (v < 0 for none); the
+// largest v wins and ties go to the smallest i, so a pivot search whose
+// threads scan rows in increasing order picks the FIRST maximal row, the
+// rule of temfpy_tpu/ops/linalg.py.  Needs blockDim.x a multiple of 32 and
+// at most 1024; all threads must call it.  Returns the winning i.
+__device__ __forceinline__ int block_argmax_first(double v, int i) {
+    __shared__ double s_v[32];
+    __shared__ int s_i[32];
+    __shared__ int s_win;
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    for (int d = 16; d > 0; d >>= 1) {
+        const double v2 = __shfl_down_sync(0xffffffffu, v, d);
+        const int i2 = __shfl_down_sync(0xffffffffu, i, d);
+        if (v2 > v || (v2 == v && i2 < i)) {
+            v = v2;
+            i = i2;
+        }
+    }
+    if (lane == 0) {
+        s_v[warp] = v;
+        s_i[warp] = i;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        double bv = s_v[0];
+        int bi = s_i[0];
+        for (int w = 1; w < (int)(blockDim.x / 32); ++w)
+            if (s_v[w] > bv || (s_v[w] == bv && s_i[w] < bi)) {
+                bv = s_v[w];
+                bi = s_i[w];
+            }
+        s_win = bi;
+    }
+    __syncthreads();
+    return s_win;
+}

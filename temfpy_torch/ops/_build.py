@@ -48,8 +48,15 @@ _SIGNATURES = {
     # colk, kindk, rowk, signk, mb, kb, right_mode, det_out, S_out, stream
     "tf_site_overlap_schur": [_i, _vp, _vp] + [_i] * 4 + [_vp] * 8 + [_i] * 3
     + [_vp] * 3,
+    # ... as tf_site_overlap_schur, with the workspace before det_out
+    "tf_site_overlap_schur_gmem": [_i, _vp, _vp] + [_i] * 4 + [_vp] * 8 + [_i] * 3
+    + [_vp] * 4,
     # V1h, V2h, j1, j2, thresh, G, nb, k1, k2, N_out, norm_out, stream
     "tf_bdg_overlap": [_vp] * 5 + [_i] * 4 + [_vp] * 3,
+    # ... as tf_bdg_overlap, with the workspace before N_out
+    "tf_bdg_overlap_gmem": [_vp] * 5 + [_i] * 4 + [_vp] * 4,
+    # VT, flat, Cmat, out, B, L, kb, keb, fb, Wb, right, stream
+    "tf_fw_frame_slab": [_vp] * 4 + [_i] * 7 + [_vp],
     # N, norm, pos_b, pos_k, cnt_b, cnt_k, pr, pc, tab0, tab1, tab2, out,
     # G, m, width, wt, R_b, K_b, P_b, n0, n1, n2, sel, D0p1, D1, D2, stream
     "tf_pf_fill": [_vp] * 12 + [_i] * 14 + [_vp],

@@ -9,7 +9,13 @@ launches in its ``launches`` attribute (twin calls do not count).
 - :func:`site_overlap_schur` (kernel ``csrc/site_overlap_schur.cu``)
   replaces ``temfpy_tpu/slater.py:_site_overlap_impl`` /
   ``_site_overlap_group``: per site, the bra/ket orbital overlap and the
-  Schur complement of its always-occupied block.
+  Schur complement of its always-occupied block.  Sites too wide for its
+  shared memory go to :func:`site_overlap_schur_gmem`, the same source's
+  global-memory kernel, chosen from the shape before the launch.
+- :func:`fw_frame_slab` (kernel ``csrc/fw_frame_slab.cu``) replaces
+  ``temfpy_tpu/ops/fw.py:_fw_frame_slab``: per cut of a slab, the
+  Fishman-White eigenvector frame gathered and combined from the mode
+  matrix.
 - :func:`det_fill` (kernel ``csrc/det_fill.cu``) replaces
   ``temfpy_tpu/slater.py:_det_fill_packed_impl`` (and its grouped forms
   ``_det_fill_packed_group`` / ``_det_fill_fused_group`` with the plan
@@ -21,7 +27,8 @@ launches in its ``launches`` attribute (twin calls do not count).
   ``temfpy_tpu/ops/splitc.py:pf_overlap_kernel`` /
   ``_pf_overlap_kernel_half``: per site, the Bogoliubov basis change, the
   inverse of its U* block, the antisymmetric overlap matrix N and the
-  Onishi norm.
+  Onishi norm.  Half sizes too large for its shared memory go to
+  :func:`bdg_overlap_gmem`, chosen from the shape before the launch.
 - :func:`pf_fill` (kernel ``csrc/pf_fill.cu``) replaces
   ``temfpy_tpu/ops/pfaffian.py:_pf_pairs_impl`` / ``batched_pfaffian_pairs``
   (with ``_derive_pair_indices``, ``symplectic_pad`` and the Parlett-Reid
@@ -119,20 +126,61 @@ def site_overlap_schur_plain(frames_b, frames_k, colb, kindb, rowb, signb,
     return det_always, sometimes
 
 
+def site_overlap_fits_smem(mb: int, dtype: torch.dtype) -> bool:
+    """Whether the shared-memory ``site_overlap_schur`` kernel takes overlap
+    width ``mb`` (its mb x mb matrix, a pivot column and the determinant);
+    wider sites go to :func:`site_overlap_schur_gmem`: mb > 169 in float64,
+    mb > 120 in complex128."""
+    item = 16 if dtype == torch.complex128 else 8
+    return (mb * mb + mb + 1) * item <= _SMEM_LIMIT
+
+
 def site_overlap_schur(frames_b, frames_k, colb, kindb, rowb, signb,
                        colk, kindk, rowk, signk, *, kb: int, mode: str):
     """Per-site overlap matrix and Schur complement of a group of G sites
     (arguments as in :func:`site_overlap_schur_plain`; on CUDA the integer
     descriptors must be int32 and ``sign`` float64).  CPU tensors run the
-    twin; CUDA tensors launch ``csrc/site_overlap_schur.cu``."""
+    twin; CUDA tensors launch ``csrc/site_overlap_schur.cu``: its
+    shared-memory kernel where :func:`site_overlap_fits_smem`, else (chosen
+    from the shape before any launch) :func:`site_overlap_schur_gmem`."""
+    args = (frames_b, frames_k, colb, kindb, rowb, signb, colk, kindk, rowk, signk)
+    dev = frames_b.device
+    if dev.type == "cpu":
+        if mode not in ("left", "right"):
+            raise ValueError(f"mode must be 'left' or 'right', got {mode!r}")
+        return site_overlap_schur_plain(*args, kb=kb, mode=mode)
+    if not site_overlap_fits_smem(colb.shape[-1], frames_b.dtype):
+        return site_overlap_schur_gmem(*args, kb=kb, mode=mode)
+    return _site_overlap_launch(site_overlap_schur, args, kb, mode)
+
+
+site_overlap_schur.launches = 0
+
+
+def site_overlap_schur_gmem(frames_b, frames_k, colb, kindb, rowb, signb,
+                            colk, kindk, rowk, signk, *, kb: int, mode: str):
+    """The global-memory kernel of ``csrc/site_overlap_schur.cu`` on CUDA
+    tensors, any overlap width (arguments, result and twin as for
+    :func:`site_overlap_schur`, which calls this where the shared-memory
+    kernel does not fit); the mb x mb matrices live in a G x mb x mb
+    workspace.  Counts its own launches."""
+    args = (frames_b, frames_k, colb, kindb, rowb, signb, colk, kindk, rowk, signk)
+    return _site_overlap_launch(site_overlap_schur_gmem, args, kb, mode)
+
+
+site_overlap_schur_gmem.launches = 0
+
+
+def _site_overlap_launch(wrapper, args, kb, mode):
+    """Checks and launch of the kernel of ``wrapper`` (one of the two
+    site_overlap_schur wrappers, whose ``launches`` it counts); the
+    global-memory kernel takes its workspace before det_out."""
+    frames_b, frames_k, colb, kindb, rowb, signb, colk, kindk, rowk, signk = args
     if mode not in ("left", "right"):
         raise ValueError(f"mode must be 'left' or 'right', got {mode!r}")
     dev = frames_b.device
-    if dev.type == "cpu":
-        return site_overlap_schur_plain(frames_b, frames_k, colb, kindb, rowb, signb,
-                                        colk, kindk, rowk, signk, kb=kb, mode=mode)
     if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
+        raise ValueError(f"{wrapper.__name__} runs on CUDA tensors, got {dev}")
     from . import _build
 
     G, L, Wb = frames_b.shape
@@ -154,27 +202,24 @@ def site_overlap_schur(frames_b, frames_k, colb, kindb, rowb, signb,
         raise TypeError("signs must be float64")
     _check_cuda({**desc, "frames_b": frames_b, "frames_k": frames_k,
                  "signb": signb, "signk": signk}, dev)
-    item = frames_b.element_size()
-    if (mb * mb + mb + 1) * item > _SMEM_LIMIT:
-        raise ValueError(f"overlap width mb={mb} exceeds the kernel's shared memory")
     sb = mb - kb
     det = torch.empty(G, dtype=frames_b.dtype, device=dev)
     S = torch.empty((G, sb, sb), dtype=frames_b.dtype, device=dev)
     lib = _build.load()
+    if wrapper is site_overlap_schur_gmem:
+        work = torch.empty((G, mb, mb), dtype=frames_b.dtype, device=dev)
+        fn, extra = lib.tf_site_overlap_schur_gmem, (work.data_ptr(),)
+    else:
+        fn, extra = lib.tf_site_overlap_schur, ()
     with torch.cuda.device(dev):
-        err = lib.tf_site_overlap_schur(
-            _DTYPE_CODE[frames_b.dtype], frames_b.data_ptr(), frames_k.data_ptr(),
-            G, L, Wb, Wk, colb.data_ptr(), kindb.data_ptr(), rowb.data_ptr(),
-            signb.data_ptr(), colk.data_ptr(), kindk.data_ptr(), rowk.data_ptr(),
-            signk.data_ptr(), mb, kb, int(mode == "right"), det.data_ptr(),
-            S.data_ptr(), _stream_ptr(dev),
-        )
-    _raise_on(err, "site_overlap_schur")
-    site_overlap_schur.launches += 1
+        err = fn(_DTYPE_CODE[frames_b.dtype], frames_b.data_ptr(), frames_k.data_ptr(),
+                 G, L, Wb, Wk, colb.data_ptr(), kindb.data_ptr(), rowb.data_ptr(),
+                 signb.data_ptr(), colk.data_ptr(), kindk.data_ptr(), rowk.data_ptr(),
+                 signk.data_ptr(), mb, kb, int(mode == "right"), *extra, det.data_ptr(),
+                 S.data_ptr(), _stream_ptr(dev))
+    _raise_on(err, wrapper.__name__)
+    wrapper.launches += 1
     return det, S
-
-
-site_overlap_schur.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -323,10 +368,16 @@ def bdg_overlap_smem_bytes(nb: int, k1: int, k2: int) -> int:
     return (2 * nb * nb + (k1 + k2) * nb + nb + 1) * 16
 
 
+def bdg_overlap_fits_smem(nb: int, k1: int, k2: int) -> bool:
+    """Whether the shared-memory ``bdg_overlap`` kernel takes half size
+    ``nb`` with ``k1`` + ``k2`` active modes (nb <= 64 at the buckets of the
+    main path); larger sites go to :func:`bdg_overlap_gmem`."""
+    return bdg_overlap_smem_bytes(nb, k1, k2) <= _SMEM_LIMIT
+
+
 def bdg_overlap_check(V1h, V2h, j1, j2, thresh) -> tuple:
-    """The kernel's argument checks of :func:`bdg_overlap` short of the
-    device: shapes, dtypes and the shared-memory limit ([U* | I] must fit,
-    so nb <= 64).  Returns (G, nb, k1, k2)."""
+    """The argument checks of both ``bdg_overlap`` kernels short of the
+    device: shapes and dtypes.  Returns (G, nb, k1, k2)."""
     G, n2, nb = V1h.shape
     if n2 != 2 * nb or tuple(V2h.shape) != (G, n2, nb):
         raise ValueError(f"frames must be (G, 2nb, nb) alike, got {tuple(V1h.shape)}, "
@@ -338,24 +389,46 @@ def bdg_overlap_check(V1h, V2h, j1, j2, thresh) -> tuple:
     _check_int32({"j1": j1, "j2": j2})
     if j1.shape[0] != G or j2.shape[0] != G or j1.dim() != 2 or j2.dim() != 2:
         raise ValueError("j1/j2 must be (G, k) index tables")
-    k1, k2 = j1.shape[1], j2.shape[1]
-    if bdg_overlap_smem_bytes(nb, k1, k2) > _SMEM_LIMIT:
-        raise ValueError(f"half size nb={nb} with k1={k1}, k2={k2} exceeds the kernel's "
-                         f"shared memory ({bdg_overlap_smem_bytes(nb, k1, k2)} > {_SMEM_LIMIT} "
-                         "bytes; half blocks of more than 64 sites do not fit)")
-    return G, nb, k1, k2
+    return G, nb, j1.shape[1], j2.shape[1]
 
 
 def bdg_overlap(V1h, V2h, j1, j2, thresh):
     """Grouped Bogoliubov overlap of G sites (arguments as in
-    :func:`bdg_overlap_plain`; on CUDA ``j1``/``j2`` are int32, the frames
-    complex128 and nb at most 64).  CPU tensors run the twin; CUDA tensors
-    launch ``csrc/bdg_overlap.cu``."""
-    dev = V1h.device
-    if dev.type == "cpu":
+    :func:`bdg_overlap_plain`; on CUDA ``j1``/``j2`` are int32 and the
+    frames complex128).  CPU tensors run the twin; CUDA tensors launch
+    ``csrc/bdg_overlap.cu``: its shared-memory kernel where
+    :func:`bdg_overlap_fits_smem`, else (chosen from the shape before any
+    launch) :func:`bdg_overlap_gmem`."""
+    if V1h.device.type == "cpu":
         return bdg_overlap_plain(V1h, V2h, j1, j2, thresh)
+    G, nb, k1, k2 = bdg_overlap_check(V1h, V2h, j1, j2, thresh)
+    if not bdg_overlap_fits_smem(nb, k1, k2):
+        return bdg_overlap_gmem(V1h, V2h, j1, j2, thresh)
+    return _bdg_overlap_launch(bdg_overlap, V1h, V2h, j1, j2, thresh)
+
+
+bdg_overlap.launches = 0
+
+
+def bdg_overlap_gmem(V1h, V2h, j1, j2, thresh):
+    """The global-memory kernel of ``csrc/bdg_overlap.cu`` on CUDA tensors,
+    any half size (arguments, result and twin as for :func:`bdg_overlap`,
+    which calls this where the shared-memory kernel does not fit); [U* | I]
+    and the two product blocks live in a per-site workspace.  Counts its own
+    launches."""
+    return _bdg_overlap_launch(bdg_overlap_gmem, V1h, V2h, j1, j2, thresh)
+
+
+bdg_overlap_gmem.launches = 0
+
+
+def _bdg_overlap_launch(wrapper, V1h, V2h, j1, j2, thresh):
+    """Checks and launch of the kernel of ``wrapper`` (one of the two
+    bdg_overlap wrappers, whose ``launches`` it counts); the global-memory
+    kernel takes its workspace before N_out."""
+    dev = V1h.device
     if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
+        raise ValueError(f"{wrapper.__name__} runs on CUDA tensors, got {dev}")
     from . import _build
 
     G, nb, k1, k2 = bdg_overlap_check(V1h, V2h, j1, j2, thresh)
@@ -364,16 +437,97 @@ def bdg_overlap(V1h, V2h, j1, j2, thresh):
     N = torch.empty((G, m, m), dtype=torch.complex128, device=dev)
     norm = torch.empty(G, dtype=torch.float64, device=dev)
     lib = _build.load()
+    if wrapper is bdg_overlap_gmem:
+        work = torch.empty((G, 2 * nb * nb + m * nb), dtype=torch.complex128, device=dev)
+        fn, extra = lib.tf_bdg_overlap_gmem, (work.data_ptr(),)
+    else:
+        fn, extra = lib.tf_bdg_overlap, ()
     with torch.cuda.device(dev):
-        err = lib.tf_bdg_overlap(V1h.data_ptr(), V2h.data_ptr(), j1.data_ptr(), j2.data_ptr(),
-                                 thresh.data_ptr(), G, nb, k1, k2, N.data_ptr(),
-                                 norm.data_ptr(), _stream_ptr(dev))
-    _raise_on(err, "bdg_overlap")
-    bdg_overlap.launches += 1
+        err = fn(V1h.data_ptr(), V2h.data_ptr(), j1.data_ptr(), j2.data_ptr(),
+                 thresh.data_ptr(), G, nb, k1, k2, *extra, N.data_ptr(), norm.data_ptr(),
+                 _stream_ptr(dev))
+    _raise_on(err, wrapper.__name__)
+    wrapper.launches += 1
     return N, norm
 
 
-bdg_overlap.launches = 0
+# --------------------------------------------------------------------------
+# K9: Fishman-White frame slab
+# --------------------------------------------------------------------------
+
+
+def _fw_fields(flat, kb: int, fb: int, Wb: int):
+    return (flat[:, :kb], flat[:, kb : kb + fb], flat[:, kb + fb : kb + fb + Wb],
+            flat[:, kb + fb + Wb])
+
+
+def fw_frame_slab_plain(VT, flat, Cmat, *, side: str, L: int, kb: int, fb: int, Wb: int):
+    """Plain PyTorch twin of the ``fw_frame_slab`` kernel
+    (``temfpy_tpu/ops/fw.py:_fw_frame_slab``, which takes V; here its
+    transpose).
+
+    ``VT`` (L, L) float64, row j = mode j; ``flat`` (B, kb + fb + Wb + 1)
+    int32 holding per cut b the crossing-mode indices Xidx (kb; pad 0, with
+    zero Cmat rows), the one-sided filled modes Fidx (fb; pad -1 -> zero
+    column), the column map colmap (Wb; value keb + fb -> zero column) and
+    the block size xs; ``Cmat`` (B, kb, keb) Gram coefficients.  Returns the
+    frames (B, L, Wb): columns [VT[Xidx]^T Cmat | VT[Fidx]^T | 0][:, colmap],
+    rows outside the block (l >= xs for side "L", l < L - xs for "R")
+    zero."""
+    Xidx, Fidx, colmap, xs = (t.long() for t in _fw_fields(flat, kb, fb, Wb))
+    rows = torch.arange(L, device=VT.device)
+    if side == "L":
+        mask = rows[None, :] < xs[:, None]  # (B, L)
+    else:
+        mask = rows[None, :] >= (L - xs)[:, None]
+    mask = mask.to(VT.dtype)
+    VX = VT[Xidx] * mask[:, None, :]  # (B, kb, L)
+    ent = torch.einsum("bkl,bke->ble", VX, Cmat)  # (B, L, keb)
+    VF = VT[Fidx.clamp(min=0)].transpose(1, 2)  # (B, L, fb)
+    VF = VF * (Fidx >= 0).to(VT.dtype)[:, None, :] * mask[:, :, None]
+    mid = torch.cat([ent, VF, torch.zeros_like(ent[:, :, :1])], dim=2)
+    return torch.gather(mid, 2, colmap[:, None, :].expand(-1, L, -1))
+
+
+def fw_frame_slab(VT, flat, Cmat, *, side: str, L: int, kb: int, fb: int, Wb: int):
+    """A slab of B Fishman-White frames (arguments as in
+    :func:`fw_frame_slab_plain`; on CUDA ``flat`` is int32 and ``VT`` and
+    ``Cmat`` float64).  CPU tensors run the twin; CUDA tensors launch
+    ``csrc/fw_frame_slab.cu``."""
+    if side not in ("L", "R"):
+        raise ValueError(f"side must be 'L' or 'R', got {side!r}")
+    dev = VT.device
+    if dev.type == "cpu":
+        return fw_frame_slab_plain(VT, flat, Cmat, side=side, L=L, kb=kb, fb=fb, Wb=Wb)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    from . import _build
+
+    B = flat.shape[0]
+    keb = Cmat.shape[-1]
+    if tuple(VT.shape) != (L, L):
+        raise ValueError(f"VT has shape {tuple(VT.shape)}, expected {(L, L)}")
+    if tuple(flat.shape) != (B, kb + fb + Wb + 1):
+        raise ValueError(f"flat has shape {tuple(flat.shape)}, expected "
+                         f"{(B, kb + fb + Wb + 1)}")
+    if tuple(Cmat.shape) != (B, kb, keb):
+        raise ValueError(f"Cmat has shape {tuple(Cmat.shape)}, expected {(B, kb, keb)}")
+    if VT.dtype != torch.float64 or Cmat.dtype != torch.float64:
+        raise TypeError(f"VT and Cmat must be float64, got {VT.dtype}, {Cmat.dtype}")
+    _check_int32({"flat": flat})
+    _check_cuda({"VT": VT, "flat": flat, "Cmat": Cmat}, dev)
+    out = torch.empty((B, L, Wb), dtype=torch.float64, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        err = lib.tf_fw_frame_slab(VT.data_ptr(), flat.data_ptr(), Cmat.data_ptr(),
+                                   out.data_ptr(), B, L, kb, keb, fb, Wb, int(side == "R"),
+                                   _stream_ptr(dev))
+    _raise_on(err, "fw_frame_slab")
+    fw_frame_slab.launches += 1
+    return out
+
+
+fw_frame_slab.launches = 0
 
 
 # --------------------------------------------------------------------------

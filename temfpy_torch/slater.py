@@ -9,9 +9,13 @@ package's docstrings do.  The path:
 1. ``correlation_matrix``: one ``eigh`` of the single-particle Hamiltonian.
 2. Per cut, the eigendecomposition of the leading or trailing block of C,
    as slabs of one batched padded ``eigh``
-   (:func:`temfpy_torch.ops.linalg.eigh_blocks`), then the Schmidt modes
-   (:class:`SchmidtModes`) and the enumeration of the chi leading Schmidt
-   states on the host (:class:`SchmidtVectors`).
+   (:func:`temfpy_torch.ops.linalg.eigh_blocks`), or, for a real C where
+   :func:`temfpy_torch.ops.fw.use_fw` says so, the Fishman-White frontend
+   (:func:`temfpy_torch.ops.fw.fw_frames`: one host sweep, compact frames
+   built on the device by the ``fw_frame_slab`` kernel); then the Schmidt
+   modes (:class:`SchmidtModes`) and the enumeration of the chi leading
+   Schmidt states on the host (:class:`SchmidtVectors`).  The centre cut
+   always takes the exact frontend.
 3. Per site, host planning (:func:`_plan_site`,
    :meth:`MPSTensorData._plan_fill`, numpy) and exactly two device entry
    points, each launched once per group of sites sharing a shape bucket:
@@ -32,11 +36,12 @@ Not ported (TPU workarounds of the JAX package): ``_take_frame``,
 single-upload plan buffer (a Python slice or ``torch.unbind`` does their
 work); the ``_chi_shard_*`` helpers and the mesh branch of
 ``build_site_tensors``; the compact host frontend
-(``_compact_sweep_frames``, so every frame is a full (L, L) eigh output);
-the randomized and Fishman-White frontends; the stream lookahead thread;
+(``_compact_sweep_frames``: exact-frontend frames are full (L, L) eigh
+outputs); the stream lookahead thread;
 the small-problem CPU reroute; the pair-axis chunking that bounded the
 TPU's one-hot temporaries.  Not yet ported: the rank-update (swap)
-determinant path, and ``C_to_iMPS``/``H_to_iMPS``.
+determinant path, the randomized frontend, and
+``C_to_iMPS``/``H_to_iMPS``.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from . import profiling
 from .config import DIAG_TOL as _DIAG_TOL
 from .config import resolve_device
 from .mps import MPS, FermionSite
+from .ops.fw import fw_frames, use_fw
 from .ops.kernels import det_fill, site_overlap_schur
 from .ops.linalg import block_svd, eigh_blocks
 from .schmidt_utils import lowest_sums, to_stopping_condition
@@ -146,12 +152,17 @@ class SchmidtModes:
     """Mean-field orbitals generating the Schmidt vectors of a Slater
     determinant (reference slater.py:41-489).
 
-    The eigenvectors are kept in their full-frame form, the (L, L) output of
-    the padded batched eigh (block vectors in the leading (side L) or
-    trailing (side R) coordinates), plus a host map from the canonical
-    column order (filled, entangled desc, empty for L; empty, entangled
-    desc, filled for R) to frame columns.  ``vL``/``vR`` materialise the
-    reference's canonical (n, n) matrices on demand.
+    The eigenvectors are kept in their frame form, the (L, W) output of the
+    frontend (block vectors in the leading (side L) or trailing (side R)
+    coordinates), plus a host map from the canonical column order (filled,
+    entangled desc, empty for L; empty, entangled desc, filled for R) to
+    full ascending eigencolumn indices.  A full frame (W = L, the exact
+    frontend) holds every eigencolumn; a compact frame (the Fishman-White
+    frontend) holds only the occupied ones, and ``col0L``/``col0R`` give the
+    full index of its column 0 (0 for full frames).  ``vL``/``vR``
+    materialise the reference's canonical (n, n) matrices on demand, with
+    the dropped empty columns (never occupied by any Schmidt vector) as
+    zero vectors.
     """
 
     e: np.ndarray
@@ -165,6 +176,8 @@ class SchmidtModes:
     nR: int
     n_fermion: int
     L: int
+    col0L: int = 0
+    col0R: int = 0
 
     def __post_init__(self):
         assert (self.frameL is None) == (self.ixL is None)
@@ -172,22 +185,27 @@ class SchmidtModes:
         assert (self.frameL is not None) or (self.frameR is not None)
 
     @staticmethod
-    def _materialise(frame, col, rows):
-        return frame[rows][:, _idx(col, frame.device)]
+    def _materialise(frame, col, col0, rows):
+        cols = np.asarray(col, np.int64) - col0
+        V = frame[rows][:, _idx(np.maximum(cols, 0), frame.device)]
+        if (cols >= 0).all():
+            return V
+        return V * torch.as_tensor(cols >= 0, device=frame.device).to(V.dtype)[None, :]
 
     @property
     def vL(self):
         """Canonical (nL, nL) left eigenvector matrix (materialised)."""
         if self.frameL is None:
             return None
-        return self._materialise(self.frameL, self.colL, slice(None, self.nL))
+        return self._materialise(self.frameL, self.colL, self.col0L, slice(None, self.nL))
 
     @property
     def vR(self):
         """Canonical (nR, nR) right eigenvector matrix (materialised)."""
         if self.frameR is None:
             return None
-        return self._materialise(self.frameR, self.colR, slice(self.L - self.nR, None))
+        return self._materialise(self.frameR, self.colR, self.col0R,
+                                 slice(self.L - self.nR, None))
 
     @property
     def n_entangled(self) -> int:
@@ -291,10 +309,14 @@ class SchmidtModes:
     @classmethod
     def from_eigh(cls: Type["SchmidtModes"], C: torch.Tensor, x: int, trunc_par, *,
                   eL=None, vL_raw=None, eR=None, vR_raw=None,
-                  diag_tol: float = _DIAG_TOL, n_fermion: int | None = None) -> "SchmidtModes":
+                  diag_tol: float = _DIAG_TOL, n_fermion: int | None = None,
+                  col0L: int = 0, col0R: int = 0) -> "SchmidtModes":
         """Builds SchmidtModes from block eigendecompositions: host
-        eigenvalues ``eL``/``eR`` (ascending) and (L, L) frames
-        ``vL_raw``/``vR_raw`` as returned by :func:`eigh_blocks`."""
+        eigenvalues ``eL``/``eR`` (ascending, the whole block) and frames
+        ``vL_raw``/``vR_raw``: (L, L) as returned by :func:`eigh_blocks`, or
+        compact (L, W) frames whose column 0 is eigencolumn ``col0L`` /
+        ``col0R`` (:func:`temfpy_torch.ops.fw.fw_frames`).  A two-sided cut
+        needs full frames (the LR pairing writes into them)."""
         trunc_par = to_stopping_condition(trunc_par)
         cutoff = trunc_par.svd_min**2
         L = C.shape[0]
@@ -328,6 +350,8 @@ class SchmidtModes:
                     colR, ixR, kR = _classify_spectrum(eR, cutoff, "R", window=win)
                     eR_can = eR[colR[ixR["entangled"]]]
             assert kL == kR, "number of entangled modes must match"
+            if col0L or col0R:
+                raise ValueError("a two-sided cut needs full frames (col0L = col0R = 0)")
             k = kL
             deg_tol = trunc_par.degeneracy_tol
             assert_allclose(eL_can + eR_can[::-1], 1.0, rtol=0, atol=deg_tol,
@@ -361,7 +385,7 @@ class SchmidtModes:
         # solver noise; clip so Schmidt weights stay valid
         e = np.clip(np.asarray(e, float), 0.0, 1.0)
         modes = cls(e=e, frameL=frameL, colL=colL, frameR=frameR, colR=colR, ixL=ixL,
-                    ixR=ixR, nL=x, nR=nR, n_fermion=n_fermion, L=L)
+                    ixR=ixR, nL=x, nR=nR, n_fermion=n_fermion, L=L, col0L=col0L, col0R=col0R)
         if (frameL is not None) and (frameR is not None):
             check_schmidt_decomposition(modes, C, diag_tol)
         return modes
@@ -711,8 +735,10 @@ def _plan_site(Schmidt_bra: SchmidtVectors, Schmidt_ket: SchmidtVectors, mode: s
     modes_ket = Schmidt_ket.modes
     frame_bra = modes_bra.frameL if side == "L" else modes_bra.frameR
     col_bra = modes_bra.colL if side == "L" else modes_bra.colR
+    col0_bra = modes_bra.col0L if side == "L" else modes_bra.col0R
     frame_ket = modes_ket.frameL if side == "L" else modes_ket.frameR
     col_ket = modes_ket.colL if side == "L" else modes_ket.colR
+    col0_ket = modes_ket.col0L if side == "L" else modes_ket.col0R
     if frame_bra is None or frame_ket is None:
         raise ValueError(f"Schmidt vectors contain no {mode} Schmidt vectors")
     if modes_ket.L != modes_bra.L:
@@ -778,7 +804,7 @@ def _plan_site(Schmidt_bra: SchmidtVectors, Schmidt_ket: SchmidtVectors, mode: s
     assert len(pool) >= n_padA, "not enough free frame rows for padding"
     padA_rows = pool[:n_padA]
 
-    def descriptors(order, sign, col_map, is_bra):
+    def descriptors(order, sign, col_map, col0, is_bra):
         mb = kb + sb
         col = np.zeros(mb, np.int32)
         kind = np.full(mb, 2, np.int32)
@@ -802,13 +828,18 @@ def _plan_site(Schmidt_bra: SchmidtVectors, Schmidt_ket: SchmidtVectors, mode: s
             ppos = np.arange(sb + k, sb + kb)
 
         def to_frame_col(c):
-            """Canonical sets-column index -> (kind, frame col, row)."""
+            """Canonical sets-column index -> (kind, frame col, row).
+            ``col0`` shifts full eigencolumn indices into a compact frame;
+            referenced columns are occupied, hence never below it."""
             if physical and is_bra:
                 if c == phys_pos:
                     return 1, 0, phys_row
                 if mode == "right":
                     c = c - 1  # phys occupies sets column 0
-            return 0, int(col_map[c]), 0
+            fc = int(col_map[c]) - col0
+            if fc < 0:
+                raise RuntimeError("a Schmidt vector occupies an empty (dropped) frame column")
+            return 0, fc, 0
 
         for p, c, s in zip(apos, always, sign_always):
             kind[p], col[p], row[p] = to_frame_col(int(c))
@@ -820,8 +851,8 @@ def _plan_site(Schmidt_bra: SchmidtVectors, Schmidt_ket: SchmidtVectors, mode: s
         row[ppos] = padA_rows
         return col, kind, row, sgn
 
-    desc = (*descriptors(order_b, sign_b, col_bra, True),
-            *descriptors(order_k, sign_k, col_ket, False))
+    desc = (*descriptors(order_b, sign_b, col_bra, col0_bra, True),
+            *descriptors(order_k, sign_k, col_ket, col0_ket, False))
 
     def region_sets(sets):
         """Sets over the sometimes region: [rest..., padS(False)]."""
@@ -973,19 +1004,33 @@ def spinful_correlation_matrix(C, ph: bool = True):
 
 
 def _schmidt_vectors_batched(C: torch.Tensor, cuts, which: str, trunc_par,
-                             diag_tol: float, chunk: int, n_fermion: int):
-    """Schmidt vectors for many cuts from one batched eigh; ``which`` is
-    "L" or "R".  Returns the SchmidtVectors per cut, in order."""
+                             diag_tol: float, chunk: int, n_fermion: int, C_host=None):
+    """Schmidt vectors for many cuts; ``which`` is "L" or "R".  With a host
+    copy ``C_host`` of C, the Fishman-White frontend builds the frames
+    (:func:`temfpy_torch.ops.fw.fw_frames`); without one, or where its
+    sweep fails (gapless C), one batched eigh on C's device does.  Returns
+    the SchmidtVectors per cut, in order."""
     trunc_par = to_stopping_condition(trunc_par)
     L = C.shape[0]
     sizes = [x if which == "L" else L - x for x in cuts]
-    with profiling.stage("eigh_batch"):
-        e_all, v_all = eigh_blocks(C, sizes, which, chunk=chunk)
-        e_host = e_all.cpu().numpy()
+    res = None
+    if C_host is not None:
+        with profiling.stage("eigh_batch"):
+            res = fw_frames(C_host, sizes, which, trunc_par.svd_min**2, C.device)
+    if res is not None:
+        e_list, col0_list, frame_list = res
+    else:
+        with profiling.stage("eigh_batch"):
+            e_all, v_all = eigh_blocks(C, sizes, which, chunk=chunk)
+            e_host = e_all.cpu().numpy()
+        e_list = [e_host[i, : sizes[i]] for i in range(len(cuts))]
+        col0_list = [0] * len(cuts)
+        frame_list = list(v_all)
     out = []
     for i, x in enumerate(cuts):
-        kw = {"eL": e_host[i, : sizes[i]], "vL_raw": v_all[i]} if which == "L" else {
-            "eR": e_host[i, : sizes[i]], "vR_raw": v_all[i]}
+        kw = ({"eL": e_list[i], "vL_raw": frame_list[i], "col0L": col0_list[i]}
+              if which == "L" else
+              {"eR": e_list[i], "vR_raw": frame_list[i], "col0R": col0_list[i]})
         with profiling.stage("schmidt_modes"):
             modes = SchmidtModes.from_eigh(C, x, trunc_par, diag_tol=diag_tol,
                                            n_fermion=n_fermion, **kw)
@@ -1003,9 +1048,11 @@ def C_to_MPS(C, trunc_par, *, diag_tol: float = _DIAG_TOL, ortho_center: int | N
     ``C`` (numpy or tensor) moves to ``device`` (default: C's device for a
     tensor, else ``cuda``; ``device="cpu"`` runs the kernels' twins).  The center cut is
     decomposed first; then each half is streamed in blocks of
-    ``eigh_chunk`` cuts: one batched eigh, the Schmidt enumeration on the
-    host, and the grouped site kernels.  The result is in mixed canonical
-    form 'A' * c + 'B' * (L - c) with c = ``ortho_center`` (default L // 2).
+    ``eigh_chunk`` cuts: the block's frames (one batched eigh, or the
+    Fishman-White frontend where :func:`temfpy_torch.ops.fw.use_fw` says
+    so), the Schmidt enumeration on the host, and the grouped site kernels.
+    The result is in mixed canonical form 'A' * c + 'B' * (L - c) with
+    c = ``ortho_center`` (default L // 2).
     """
     trunc_par = to_stopping_condition(trunc_par)
     if spinful == "simple":
@@ -1023,6 +1070,9 @@ def C_to_MPS(C, trunc_par, *, diag_tol: float = _DIAG_TOL, ortho_center: int | N
     elif L % unit_cell_width != 0:
         raise ValueError(f"{unit_cell_width = } does not divide system size {L}")
     n_fermion = int(np.round(float(torch.trace(C).real)))
+    # one host copy of C serves the FW sweep of every block of both
+    # half-streams (the sweep is cached by the matrix's values)
+    C_host = C.cpu().numpy() if use_fw(C, L) else None
 
     tensors = [None] * L
     lams = [None] * (L + 1)
@@ -1039,7 +1089,7 @@ def C_to_MPS(C, trunc_par, *, diag_tol: float = _DIAG_TOL, ortho_center: int | N
         for j0 in range(0, len(cuts), eigh_chunk):
             block = cuts[j0 : j0 + eigh_chunk]
             sv_block = _schmidt_vectors_batched(C, block, which, trunc_par, diag_tol,
-                                                eigh_chunk, n_fermion)
+                                                eigh_chunk, n_fermion, C_host)
             pairs, block_sites = [], []
             for Schmidt_new in sv_block:
                 i = sites[pos]

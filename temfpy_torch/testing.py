@@ -253,6 +253,38 @@ def random_site_overlap_case(seed: int, *, G: int, L: int, kb: int, sb: int,
     return args, {"kb": kb, "mode": mode}
 
 
+def random_fw_slab_case(seed: int, *, L: int, B: int, kb: int, keb: int, fb: int, Wb: int,
+                        n_cuts: int | None = None):
+    """Seeded inputs of :func:`temfpy_torch.ops.kernels.fw_frame_slab` shaped
+    like one slab of the Fishman-White frontend: VT the transpose of an
+    (L, L) orthogonal mode matrix; per real cut, between kb/2 and kb
+    crossing modes (the rest pad 0 with zero Cmat rows), between keb/2 and
+    keb Gram columns, up to fb one-sided modes (the rest -1 pads), a
+    colmap that shuffles [Gram | one-sided slots, -1 pads included] and
+    ends in at least three pad columns, and a block size in [1, L]; the
+    last B - ``n_cuts`` cuts (default B - 5: a short last slab) are pad
+    cuts with block size 0.  Returns (VT, flat, Cmat) as numpy."""
+    rng = np.random.default_rng(seed)
+    n_cuts = B - 5 if n_cuts is None else n_cuts
+    V = np.linalg.qr(rng.normal(size=(L, L)))[0]
+    flat = np.zeros((B, kb + fb + Wb + 1), np.int32)
+    flat[:, kb : kb + fb] = -1
+    flat[:, kb + fb : kb + fb + Wb] = keb + fb
+    Cmat = np.zeros((B, kb, keb))
+    for b in range(n_cuts):
+        nk = int(rng.integers(max(1, kb // 2), kb + 1))
+        m = int(rng.integers(max(1, keb // 2), keb + 1))
+        f = int(rng.integers(0, fb + 1))
+        flat[b, :nk] = rng.choice(L, nk, replace=False)
+        Cmat[b, :nk, :m] = rng.normal(size=(nk, m), scale=nk**-0.5)
+        flat[b, kb : kb + f] = rng.choice(L, f, replace=False)
+        cols = rng.permutation(np.concatenate([np.arange(m), keb + np.arange(fb)]))
+        cols = cols[: Wb - 3]
+        flat[b, kb + fb : kb + fb + cols.size] = cols
+        flat[b, -1] = rng.integers(1, L + 1)
+    return np.ascontiguousarray(V.T), flat, Cmat
+
+
 def pip_hamiltonian(W: int, Lx: int, t: float = 1.0, delta: float = 0.5, mu: float = -0.3):
     """BdG Hamiltonian (complex-fermion basis "C") of the chiral p+ip
     superconductor on a W-leg cylinder of length Lx, as bench.py config 5

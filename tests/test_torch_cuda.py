@@ -137,3 +137,51 @@ def test_pfaffian_conversion_on_cuda_matches_cpu(cuda):
     assert f >= 1 - 1e-10
     for b in range(gpu.L + 1):
         np.testing.assert_array_equal(gpu.q_bond[b], cpu.q_bond[b])
+
+
+@pytest.mark.parametrize("side", ["L", "R"])
+@pytest.mark.parametrize("kb,keb", [(64, 32), (256, 128)])
+def test_fw_frame_slab_kernel_matches_twin(cuda, side, kb, keb):
+    """One slab with Xidx, Fidx = -1 and colmap pads and a short last slab
+    (pad cuts), at L = 256."""
+    L, B, fb, Wb = 256, 16, 32, 128
+    VT, flat, Cmat = testing.random_fw_slab_case(kb + keb, L=L, B=B, kb=kb, keb=keb, fb=fb,
+                                                 Wb=Wb)
+    a = [torch.as_tensor(x, device=cuda) for x in (VT, flat, Cmat)]
+    kw = {"side": side, "L": L, "kb": kb, "fb": fb, "Wb": Wb}
+    before = kernels.fw_frame_slab.launches
+    got = kernels.fw_frame_slab(*a, **kw)
+    assert kernels.fw_frame_slab.launches == before + 1
+    assert _rel(got, kernels.fw_frame_slab_plain(*a, **kw)) <= RTOL
+    assert float(got[-5:].abs().max()) == 0.0 < float(got.abs().max())
+
+
+@pytest.mark.parametrize("mode", ["left", "right"])
+@pytest.mark.parametrize("kb,sb,dtype", [(160, 32, "float64"), (96, 32, "complex128")])
+def test_site_overlap_gmem_kernel_matches_twin(cuda, mode, kb, sb, dtype):
+    """mb = 192 (float64) and 128 (complex128), above the shared-memory
+    kernel's limit: the wrapper takes the global-memory kernel."""
+    args, kw = testing.random_site_overlap_case(kb + sb, G=5, L=256, kb=kb, sb=sb,
+                                                mode=mode, dtype=dtype)
+    a = [torch.as_tensor(x, device=cuda) for x in args]
+    for i in (2, 3, 4, 6, 7, 8):
+        a[i] = a[i].to(torch.int32)
+    smem, gmem = kernels.site_overlap_schur.launches, kernels.site_overlap_schur_gmem.launches
+    d1, s1 = kernels.site_overlap_schur(*a, **kw)
+    assert kernels.site_overlap_schur_gmem.launches == gmem + 1
+    assert kernels.site_overlap_schur.launches == smem
+    d0, s0 = kernels.site_overlap_schur_plain(*a, **kw)
+    assert _rel(d1, d0) <= RTOL
+    assert _rel(d1[:, None, None] * s1, d0[:, None, None] * s0) <= RTOL
+
+
+@pytest.mark.parametrize("nb,k1,k2,x", [(96, 24, 24, 80), (128, 32, 24, 120)])
+def test_bdg_overlap_gmem_kernel_matches_twin(cuda, nb, k1, k2, x):
+    c = [torch.as_tensor(a, device=cuda)
+         for a in testing.random_bdg_overlap_case(nb, G=4, nb=nb, k1=k1, k2=k2, x=x)]
+    smem, gmem = kernels.bdg_overlap.launches, kernels.bdg_overlap_gmem.launches
+    N, norm = kernels.bdg_overlap(*c)
+    assert kernels.bdg_overlap_gmem.launches == gmem + 1
+    assert kernels.bdg_overlap.launches == smem
+    N0, norm0 = kernels.bdg_overlap_plain(*c)
+    assert _rel(N, N0) <= RTOL and _rel(norm, norm0) <= RTOL

@@ -20,7 +20,7 @@ def test_port_imports_and_runs_without_jax():
         from temfpy_torch import (config, mps, pfaffian, profiling, schmidt_utils, slater,
                                   testing, utils)
         from temfpy_torch.mps import io
-        from temfpy_torch.ops import _build, kernels, linalg
+        from temfpy_torch.ops import _build, fw, kernels, linalg
         from temfpy_torch.ops import pfaffian as ops_pfaffian
 
         H = np.diag(-np.ones(7), 1)

@@ -188,16 +188,14 @@ def test_wrappers_reject_bad_arguments():
 
 @pytest.mark.parametrize("nb, fits", [(64, True), (96, False)])
 def test_bdg_overlap_shared_memory_limit(nb, fits):
-    """The CUDA wrapper's checks accept the largest half block that fits
-    in shared memory (nb = 64, bench config 5's centre) and refuse the
-    next bucket (nb = 96) with a clear ValueError before any launch."""
+    """The CUDA wrapper's checks accept any half size; the largest half
+    block that fits in shared memory (nb = 64, bench config 5's centre)
+    takes the shared-memory kernel and the next bucket (nb = 96) the
+    global-memory one, chosen from the shape before any launch."""
     G, k = 2, 24
     args = (torch.zeros(G, 2 * nb, nb, dtype=torch.complex128),
             torch.zeros(G, 2 * nb, nb, dtype=torch.complex128),
             torch.zeros(G, k, dtype=torch.int32), torch.zeros(G, k, dtype=torch.int32),
             torch.zeros(G, dtype=torch.float64))
-    if fits:
-        assert kernels.bdg_overlap_check(*args) == (G, nb, k, k)
-    else:
-        with pytest.raises(ValueError, match=f"nb={nb} .* shared memory"):
-            kernels.bdg_overlap_check(*args)
+    assert kernels.bdg_overlap_check(*args) == (G, nb, k, k)
+    assert kernels.bdg_overlap_fits_smem(nb, k, k) == fits
