@@ -36,20 +36,44 @@ Phases, each printing a line; any failure raises and exits non-zero:
    every kind of pad, a short last slab), ``site_overlap_schur_gmem``
    (mb = 192, 320 in float64, 128 in complex128) and ``bdg_overlap_gmem``
    (nb = 96, 128) against their twins on seeded inputs;
+3d. rank-update and index-row kernels: ``det_rows`` (w = 4-64, paired and
+   all pairs), ``swap_tables`` (w_b = 8, 16, 24), ``swap_fill`` (s_b = 1,
+   2, 4, 8, both modes, the three scatter layouts into slots of one
+   buffer, a class built to fail the probe) and ``pf_gather`` (widths
+   4-32) against their twins on seeded inputs;
+3e. the public entry points ``ops.linalg.batched_det_pairs`` /
+   ``batched_det_gather`` and ``ops.pfaffian.batched_pfaffian_gather`` on
+   the card against the CPU (pf_gather's main path: its launches are
+   counted here);
 4c. FW parity: ``slater.C_to_MPS`` at L=768 (W=8, chi=48) through the
-   Fishman-White frontend on the card, against the card's exact frontend
-   and against the CPU's FW conversion (twins);
+   Fishman-White frontend forced on (``TEMFPY_TORCH_FW=1``; its default is
+   off) on the card, against the card's exact frontend and against the
+   CPU's FW conversion (twins);
 4d. BdG past nb = 64: p+ip W=4, Lx=40 (L=160) on the card and the CPU;
+4e. the rank-update path forced on (``TEMFPY_TORCH_DET_UPDATES=1``) on the
+   card against the CPU: the W=8, L=32 cylinder (chi=96) and the pi-flux
+   W=4, Lx=8 cylinder (chi=128), with the classes, fallbacks and wasted
+   swap fills;
+8. the rank-update slice at full size: phase 5's conversion with the
+   rank-update path on, with phase 5's checks and records, the launches of
+   K1, K2, K5, K6a and K6b, every rank-update group held against its twin
+   (with the count of groups held against extended precision and their
+   kernel/twin error ratios there), the state against phase 5's, and both
+   paths' warm wall time;
 7. the slice at L=1024: ``slater.H_to_MPS`` on bench config 1's cylinder at
-   chi=512 through the FW frontend, with phase 5's checks and records, then
-   one conversion with FW off for the frontend comparison.
+   chi=512 through the FW frontend (forced on), with phase 5's checks and
+   records, then one conversion with the default exact frontend for the
+   frontend comparison.
 
-Phases 5, 6 and 7 set their kernels' launch counts to 0 just before their
-cold conversion and read them just after (4c and 4d check that theirs
-launched).  The second-to-last line
+Phases 3e, 5, 6, 7 and 8 set their kernels' launch counts to 0 just before
+their main-path run and read them just after (4c, 4d and 4e check that
+theirs launched).  The phases of the earlier slices run the direct fill
+on both devices (``TEMFPY_TORCH_DET_UPDATES=0``; the CPU's default is the
+rank-update path).  The second-to-last line
 is a JSON object with one record per kernel: its launches in its slice's
 cold conversion, its worst absolute error against the twin over the seeded
-and main-path checks, the kernel's and the twin's milliseconds summed over
+and main-path checks (for ``swap_tables``, whose tables span 1e-18 to
+1e29, the error relative to each output's largest entry), the kernel's and the twin's milliseconds summed over
 one main-path group per shape, the least time the card could take for the
 work of those groups (``bound_ms``: the larger of their operations at
 FP64_PEAK and their bytes at HBM_RATE, computed from this run's inputs)
@@ -385,15 +409,24 @@ def bound_ms(flops, nbyte):
     return max(t_op, t_by) * 1e3, ("operations" if t_op >= t_by else "bytes")
 
 
+def written_bytes(pr, pad_row, like):
+    """Bytes of the values a fill writes: one per real pair (pad pairs, whose
+    row id is ``pad_row``, land on the trash row).  The zeroed buffer the
+    values go into is the caller's, allocated once per bucketed shape."""
+    return float((pr != pad_row).sum()) * like.element_size()
+
+
 def det_fill_cost(torch, args, kw, out):
     """(operations, bytes) of one det_fill group: an LU of the c x c block
     each pair needs (c = its occupied orbitals; sentinels add nothing),
-    2c^3/3 real operations (x4 complex); every input and the output once."""
+    2c^3/3 real operations (x4 complex); every input once and one value per
+    real pair."""
     M, det, ob, ok, pr, pc, tabs = args
     cnt = (ob < M.shape[-1]).sum(-1)
     c = torch.gather(cnt, 1, pr.long()).double()
     mult = 4 if M.is_complex() else 1
-    return float((2.0 / 3.0 * c**3).sum()) * mult, nbytes(*args, out)
+    return (float((2.0 / 3.0 * c**3).sum()) * mult,
+            nbytes(*args) + written_bytes(pr, ob.shape[1] - 1, M))
 
 
 def overlap_cost(torch, args, kw, out):
@@ -424,13 +457,17 @@ def det_fill_library_ms(torch, args):
 
 
 CAPTURED = {
-    # record name: (kernel, twin, error, extended-precision check, cost)
-    "det_fill": ("det_fill", "det_fill_plain", det_fill_err, det_fill_ext, det_fill_cost),
+    # record name: (kernel, twin, error, extended-precision check, cost,
+    # library call's milliseconds or None)
+    "det_fill": ("det_fill", "det_fill_plain", det_fill_err, det_fill_ext, det_fill_cost,
+                 lambda torch, args, kw: det_fill_library_ms(torch, args)),
     "site_overlap_schur": ("site_overlap_schur", "site_overlap_schur_plain", overlap_err,
-                           overlap_ext, overlap_cost),
+                           overlap_ext, overlap_cost, None),
     "site_overlap_schur_gmem": ("site_overlap_schur_gmem", "site_overlap_schur_plain",
-                                overlap_err, overlap_ext, overlap_cost),
+                                overlap_err, overlap_ext, overlap_cost, None),
 }
+"""The kernels phase_captured holds against their twins; the rank-update
+kernels join it below their own section."""
 
 
 def hold(torch, kernels, label, name, key, args, kw):
@@ -443,10 +480,13 @@ def hold(torch, kernels, label, name, key, args, kw):
     is held, on its worst sites, against an extended-precision evaluation:
     the kernel passes if its error there is at most EXT_FACTOR times the
     twin's, or within KERNEL_RTOL of the largest entry.  Returns the
-    (relative, absolute) kernel-twin difference."""
-    kname, pname, err, ext, _cost = CAPTURED[name]
+    (relative, absolute) kernel-twin difference and, for a group held
+    against extended precision, (kernel error, twin error) there, else
+    None."""
+    kname, pname, err, ext, _cost, _lib = CAPTURED[name]
     kernel, plain = getattr(kernels, kname), getattr(kernels, pname)
     rel, ab = err(kernel, plain, args, kw)
+    held = None
     if not rel <= KERNEL_RTOL:
         e_k, e_t, scale, dmin = ext(torch, kernels, args, kw)
         print(f"{label}: {name} {key}: kernel-twin rel err {rel:.3e} > {KERNEL_RTOL}; "
@@ -456,7 +496,8 @@ def hold(torch, kernels, label, name, key, args, kw):
         if not (e_k <= EXT_FACTOR * e_t or e_k <= KERNEL_RTOL * scale):
             raise AssertionError(f"{name} {key}: kernel error {e_k:.3e} against extended "
                                  f"precision exceeds {EXT_FACTOR} x the twin's {e_t:.3e}")
-    return rel, ab
+        held = (e_k, e_t)
+    return rel, ab, held
 
 
 def phase_captured(torch, kernels, label, groups_by_name):
@@ -467,29 +508,37 @@ def phase_captured(torch, kernels, label, groups_by_name):
     over the groups."""
     rec = {}
     for name, groups in groups_by_name.items():
-        kname, pname, _err, _ext, cost = CAPTURED[name]
+        kname, pname, _err, _ext, cost, library = CAPTURED[name]
         kernel, plain = getattr(kernels, kname), getattr(kernels, pname)
         ms = plain_ms = worst = lib_ms = bnd = flops = nbyte = 0.0
         for key, (args, kw) in sorted(groups.items()):
-            rel, ab = hold(torch, kernels, label, name, key, args, kw)
-            out, t_k = timed(torch, lambda: kernel(*args, **kw))
-            _, t_p = timed(torch, lambda: plain(*args, **kw))
+            rel, ab, _held = hold(torch, kernels, label, name, key, args, kw)
+            kw_t = dict(kw)
+            if kw.get("shape") is not None:
+                # the main path's fills scatter into a zeroed buffer made
+                # once per bucketed shape; so do the timed calls
+                G, shape = args[0].shape[0], kw["shape"]
+                kw_t.update(out=torch.zeros((G, shape[0] + 1) + tuple(shape[1:]),
+                                            dtype=args[0].dtype, device=args[0].device),
+                            slot=list(range(G)))
+            out, t_k = timed(torch, lambda: kernel(*args, **kw_t))
+            _, t_p = timed(torch, lambda: plain(*args, **kw_t))
             f, b = cost(torch, args, kw, out)
             t_b, _ = bound_ms(f, b)
             print(f"{label}: {name} {key} G={args[0].shape[0]}: rel err {rel:.3e}; "
                   f"kernel {t_k:.3f} ms, plain {t_p:.3f} ms, bound {t_b:.4f} ms", flush=True)
             ms, plain_ms, worst = ms + t_k, plain_ms + t_p, max(worst, ab)
             bnd, flops, nbyte = bnd + t_b, flops + f, nbyte + b
-            if name == "det_fill":
-                lib_ms += det_fill_library_ms(torch, args)
+            if library is not None:
+                lib_ms += library(torch, args, kw)
         by = bound_ms(flops, nbyte)[1]
         print(f"{label}: {name} on {len(groups)} main-path groups: kernel {ms:.3f} ms, "
               f"plain {plain_ms:.3f} ms, bound {bnd:.4f} ms ({by}; {flops:.3e} operations, "
               f"{nbyte:.3e} bytes)"
               + (f", torch.linalg.det on the gathered batches {lib_ms:.3f} ms"
-                 if name == "det_fill" else ""), flush=True)
+                 if library is not None else ""), flush=True)
         rec[name] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
-                     "bound_by": by, "library_ms": lib_ms if name == "det_fill" else None}
+                     "bound_by": by, "library_ms": lib_ms if library is not None else None}
     return rec
 
 
@@ -539,45 +588,78 @@ def canonical_residuals(torch, mps, i):
 
 
 @contextlib.contextmanager
-def slater_capture(slater, fw, every=False):
+def slater_capture(slater, fw, every=()):
     """Wraps the Slater path's kernel entry points for the duration: each
     call goes through, and the inputs of the first group per shape are kept
     (``fills`` per (w, spec, P_b), ``overlaps`` per (kb, mb, mode),
-    ``slabs`` per (side, kb, keb, fb, Wb)), with sites per (w, P_b) in
-    ``widths`` and per (kb, mb) in ``kbs``.  With ``every``, each det_fill
-    and site_overlap_schur group is also kept in ``every`` as (kernel,
-    shape key, (args, kw))."""
+    ``slabs`` per (side, kb, keb, fb, Wb), and for the rank-update path
+    ``swap_tables`` per (m, w_b), ``swap_fills`` per (mode, s_b, w_b, P_b,
+    spec), ``det_rows`` per (w, n)), with sites per (w, P_b) in ``widths``
+    and per (kb, mb) in ``kbs``, and the real (unpadded) pairs of the
+    det_fill and of the scatter-mode swap_fill groups in ``pairs`` (device
+    counts, no synchronisation).  Every group of a kernel named in
+    ``every`` is also kept in ``every`` as (kernel, shape key, (args,
+    kw))."""
     cap = {"widths": Counter(), "kbs": Counter(), "fills": {}, "overlaps": {}, "slabs": {},
-           "every": []}
-    fill, overlap, slab = slater.det_fill, slater.site_overlap_schur, fw.fw_frame_slab
+           "swap_tables": {}, "swap_fills": {}, "det_rows": {}, "every": [],
+           "pairs": {"direct": 0, "swap": 0}}
+    names = ("det_fill", "site_overlap_schur", "swap_tables", "swap_fill", "det_rows")
+    orig = {n: getattr(slater, n) for n in names}
+    slab = fw.fw_frame_slab
 
     def keep(kind, name, key, group):
         cap[kind].setdefault(key, group)
-        if every:
+        if name in every:
             cap["every"].append((name, key, group))
 
-    def fill_rec(M, det, ob, ok, pr, pc, tabs, **kw):
+    # the fills write into the conversion's own buffers (out, slot); the
+    # groups are kept without them, so that held and timed calls get fresh
+    # ones and leave the state alone
+    def fill_rec(M, det, ob, ok, pr, pc, tabs, *, out=None, slot=None, **kw):
         cap["widths"][(ob.shape[-1], pr.shape[-1])] += M.shape[0]
+        cap["pairs"]["direct"] = cap["pairs"]["direct"] + (pr != ob.shape[1] - 1).sum()
         keep("fills", "det_fill", (ob.shape[-1], kw["spec"], pr.shape[-1]),
              ((M, det, ob, ok, pr, pc, tabs), kw))
-        return fill(M, det, ob, ok, pr, pc, tabs, **kw)
+        return orig["det_fill"](M, det, ob, ok, pr, pc, tabs, **kw, out=out, slot=slot)
 
     def overlap_rec(fb, fk, colb, *a, kb, mode):
         cap["kbs"][(kb, colb.shape[-1])] += fb.shape[0]
         keep("overlaps", "site_overlap_schur", (kb, colb.shape[-1], mode),
              ((fb, fk, colb, *a), {"kb": kb, "mode": mode}))
-        return overlap(fb, fk, colb, *a, kb=kb, mode=mode)
+        return orig["site_overlap_schur"](fb, fk, colb, *a, kb=kb, mode=mode)
+
+    def tables_rec(M, r0, c0):
+        keep("swap_tables", "swap_tables", (M.shape[-1], r0.shape[-1]), ((M, r0, c0), {}))
+        return orig["swap_tables"](M, r0, c0)
+
+    def swap_rec(*a, s_b, spec=None, shape=None, out=None, slot=None):
+        scatter = len(a) > 17
+        kw = {"s_b": s_b, **({"spec": spec, "shape": shape} if scatter else {})}
+        if scatter:
+            cap["pairs"]["swap"] = cap["pairs"]["swap"] + (a[15] != a[7].shape[1] - 1).sum()
+        keep("swap_fills", "swap_fill", ("fill" if scatter else "probe", s_b, a[3].shape[-1],
+                                         a[15].shape[-1], spec), (a, kw))
+        return orig["swap_fill"](*a, **kw, **({"out": out, "slot": slot} if scatter else {}))
+
+    def rows_rec(M, ib, ik, scale=None, *, cross=False):
+        keep("det_rows", "det_rows", (ib.shape[-1], ib.shape[1]),
+             ((M, ib, ik, scale), {"cross": cross}))
+        return orig["det_rows"](M, ib, ik, scale, cross=cross)
 
     def slab_rec(VT, flat, Cmat, **kw):
         cap["slabs"].setdefault((kw["side"], kw["kb"], Cmat.shape[-1], kw["fb"], kw["Wb"]),
                                 ((VT, flat, Cmat), kw))
         return slab(VT, flat, Cmat, **kw)
 
-    slater.det_fill, slater.site_overlap_schur, fw.fw_frame_slab = fill_rec, overlap_rec, slab_rec
+    for n, f in zip(names, (fill_rec, overlap_rec, tables_rec, swap_rec, rows_rec)):
+        setattr(slater, n, f)
+    fw.fw_frame_slab = slab_rec
     try:
         yield cap
     finally:
-        slater.det_fill, slater.site_overlap_schur, fw.fw_frame_slab = fill, overlap, slab
+        for n, f in orig.items():
+            setattr(slater, n, f)
+        fw.fw_frame_slab = slab
 
 
 def check_captured_slater(torch, kernels, label, cap):
@@ -593,6 +675,10 @@ def check_captured_slater(torch, kernels, label, cap):
         if len(fits) < len(overlaps):
             groups["site_overlap_schur_gmem"] = {k: v for k, v in overlaps.items()
                                                  if k not in fits}
+    for name, kind in (("swap_tables", "swap_tables"), ("swap_fill", "swap_fills"),
+                       ("det_rows", "det_rows")):
+        if cap[kind]:
+            groups[name] = cap[kind]
     rec = phase_captured(torch, kernels, label, groups)
     if cap["slabs"]:
         rec["fw_frame_slab"] = fw_captured(torch, kernels, label, cap["slabs"])
@@ -600,14 +686,17 @@ def check_captured_slater(torch, kernels, label, cap):
 
 
 def slater_slice(torch, np, slater, fw, kernels, profiling, H, chi, label, counted,
-                 bounds=None):
-    """Phases 5 and 7: ``slater.H_to_MPS`` of H at ``chi`` on the card, cold
-    (the launch counts of ``counted`` set to 0 just before and read just
-    after) and warm (stage profile, the kernels' input shapes, and the
-    inputs of one group per shape, held against the twins); then the
-    checks of :func:`check_slater_state` and a device profile.  The FW
-    cache is cleared before each conversion, so each runs its own sweep.
-    Returns (launches, records, the warm run's state as converted)."""
+                 bounds=None, every=()):
+    """Phases 5, 7 and 8: ``slater.H_to_MPS`` of H at ``chi`` on the card,
+    cold (the launch counts of ``counted`` set to 0 just before and read
+    just after, with the rank-update statistics) and warm (stage profile,
+    the kernels' input shapes, and the inputs of one group per shape, held
+    against the twins; every group of the kernels in ``every`` is kept in
+    the capture); then the checks of :func:`check_slater_state` and a
+    device profile.  The FW cache is cleared before each conversion, so
+    each runs its own sweep.  Returns a dict: ``launches``, ``rec``
+    (records), ``raw`` (the warm run's state as converted), ``cap`` (the
+    warm run's capture), ``warm`` (seconds) and ``stats``."""
     L = H.shape[0]
     tp = {"chi_max": chi}
 
@@ -623,7 +712,9 @@ def slater_slice(torch, np, slater, fw, kernels, profiling, H, chi, label, count
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
     launches = {name: getattr(kernels, name).launches for name in counted}
-    print(f"{label}: cold conversion {cold:.3f} s; launches {launches}", flush=True)
+    stats = dict(slater._swap_stats())
+    print(f"{label}: cold conversion {cold:.3f} s; launches {launches}; rank-update classes "
+          f"{stats}", flush=True)
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched by the main path")
@@ -633,7 +724,7 @@ def slater_slice(torch, np, slater, fw, kernels, profiling, H, chi, label, count
     # warm run: stage profile, the shapes the kernels were given, and the
     # inputs of the first group of each shape
     torch.cuda.reset_peak_memory_stats()
-    with slater_capture(slater, fw) as cap, profiling.collect() as prof:
+    with slater_capture(slater, fw, every) as cap, profiling.collect() as prof:
         t0 = time.perf_counter()
         raw = run()
         torch.cuda.synchronize()
@@ -654,7 +745,8 @@ def slater_slice(torch, np, slater, fw, kernels, profiling, H, chi, label, count
     rec = check_captured_slater(torch, kernels, label, cap)
     check_slater_state(torch, np, slater, mps, H, chi, label, bounds)
     device_profile(torch, run, label)
-    return launches, rec, raw
+    return {"launches": launches, "rec": rec, "raw": raw, "cap": cap, "warm": warm,
+            "stats": stats}
 
 
 def check_slater_state(torch, np, slater, mps, H, chi, label, bounds):
@@ -730,14 +822,17 @@ def check_slater_state(torch, np, slater, mps, H, chi, label, bounds):
 
 
 def phase_full(torch, np, slater, fw, kernels, profiling):
-    """Phase 5: bench config 1 at L=256, chi=512 (the exact frontend: L is
-    below the FW threshold).  The per-site densities carry the chi
+    """Phase 5: bench config 1 at L=256, chi=512 (the exact frontend, the
+    direct fill: the card's defaults).  The per-site densities carry the chi
     truncation: 7.0e-3 on this state on the H100, so their bound is 1e-2,
     as is the centre's Schmidt-weighted residual's (1.7e-3 measured)."""
-    launches, rec, _raw = slater_slice(
-        torch, np, slater, fw, kernels, profiling, cylinder(8, 256), 512, "phase 5",
-        ("det_fill", "site_overlap_schur"), bounds={"weighted_residual": 1e-2, "n": 1e-2})
-    return launches, rec
+    return slater_slice(torch, np, slater, fw, kernels, profiling, cylinder(8, 256), 512,
+                        "phase 5", ("det_fill", "site_overlap_schur"), bounds=PHASE5_BOUNDS)
+
+
+PHASE5_BOUNDS = {"weighted_residual": 1e-2, "n": 1e-2}
+"""Phases 5 and 8, bench config 1 at L=256, chi=512: bounds on what the chi
+truncation moves (see :func:`phase_full`)."""
 
 
 def device_profile(torch, run, label):
@@ -767,7 +862,8 @@ def device_profile(torch, run, label):
         print(f"  {us / 1e3:10.2f} ms  x{count:<6d} {key[:90]}", flush=True)
     for kernel in ("det_fill_kernel", "site_overlap_schur_kernel",
                    "site_overlap_schur_gmem_kernel", "fw_frame_slab_kernel", "pf_fill_kernel",
-                   "bdg_overlap_kernel", "bdg_overlap_gmem_kernel"):
+                   "bdg_overlap_kernel", "bdg_overlap_gmem_kernel", "swap_tables_kernel",
+                   "swap_fill_kernel", "det_rows_kernel"):
         hits = [(us, n) for us, name, n in rows if kernel in name]
         if hits:
             print(f"{label}: {kernel} device time in the conversion "
@@ -780,15 +876,25 @@ def device_profile(torch, run, label):
 # --------------------------------------------------------------------------
 
 
+def skew_update_entries(t):
+    """Entries Parlett-Reid updates in a (2t x 2t) skew-symmetric matrix:
+    step i (of t) updates the strict upper triangle of the trailing
+    (2t - 2 - 2i)-wide block, sum_q (2q)(2q - 1)/2 = (t-1)t(2t-1)/3 -
+    (t-1)t/2 (the lower triangle follows by skew symmetry), two
+    multiply-adds each: about k^3/12 entries, k^3/3 real operations, for
+    width k = 2t."""
+    return (t - 1) * t * (2 * t - 1) / 3 - (t - 1) * t / 2
+
+
 def pf_fill_cost(torch, args, kw, out):
     """(operations, bytes) of one pf_fill group: per pair of tot = nk + nb
-    excitations, Parlett-Reid updates sum_k (tot - k - 2)^2 trailing
-    entries (k = 0, 2, ...), each two complex multiply-adds; pad pairs need
-    nothing.  Every input and the output once."""
+    excitations, the Parlett-Reid updates of :func:`skew_update_entries`,
+    two complex multiply-adds each; pad pairs need nothing.  Every input
+    once and one value per real pair."""
     N, norm, pb, pk, cb, ck, pr, pc, tabs = args
     t = (torch.gather(cb, 1, pr.long()) + torch.gather(ck, 1, pc.long())).double() / 2
-    entries = 4 * (t - 1).clamp(min=0) * t * (2 * t - 1) / 6
-    return float(entries.sum()) * 2 * CMA_FLOP, nbytes(*args, out)
+    return (float(skew_update_entries(t).sum()) * 2 * CMA_FLOP,
+            nbytes(*args) + written_bytes(pr, pb.shape[1] - 1, N))
 
 
 def bdg_overlap_cost(np, args, out, k1, k2):
@@ -1223,17 +1329,28 @@ def phase_fw_kernels(torch, kernels, testing):
     return worst
 
 
-def with_fw_mode(mode, fn):
-    """``fn()`` with TEMFPY_TORCH_FW set to ``mode``, restored after."""
-    old = os.environ.get("TEMFPY_TORCH_FW")
-    os.environ["TEMFPY_TORCH_FW"] = mode
+def with_env(name, value, fn):
+    """``fn()`` with the environment variable ``name`` set to ``value``,
+    restored after."""
+    old = os.environ.get(name)
+    os.environ[name] = value
     try:
         return fn()
     finally:
         if old is None:
-            os.environ.pop("TEMFPY_TORCH_FW")
+            os.environ.pop(name)
         else:
-            os.environ["TEMFPY_TORCH_FW"] = old
+            os.environ[name] = old
+
+
+def with_fw_mode(mode, fn):
+    """``fn()`` with TEMFPY_TORCH_FW set to ``mode``."""
+    return with_env("TEMFPY_TORCH_FW", mode, fn)
+
+
+def with_det_updates(mode, fn):
+    """``fn()`` with TEMFPY_TORCH_DET_UPDATES set to ``mode``."""
+    return with_env("TEMFPY_TORCH_DET_UPDATES", mode, fn)
 
 
 def phase_fw_parity(torch, np, slater, fw, kernels):
@@ -1241,8 +1358,9 @@ def phase_fw_parity(torch, np, slater, fw, kernels):
     gapped cylinder with the seeded 1e-3 disorder of tests/test_fw.py:126-148
     (chi=48, svd_min=1e-5).
 
-    - The card with FW (auto; K9 and the wide-site K2 counted) against the
-      card's exact frontend: FW_EXACT_TOL.
+    - The card with FW (forced on, TEMFPY_TORCH_FW=1; K9 and the wide-site
+      K2 counted) against the card's exact frontend (the default):
+      FW_EXACT_TOL.
     - The GPU path against the CPU's (FW forced on, the twins): the card run
       with the K1/K2 twins on the card, PARITY_TOL on fidelity, squared
       Schmidt values and normalised <c^dag c> rows, charges equal.  Both FW
@@ -1262,8 +1380,8 @@ def phase_fw_parity(torch, np, slater, fw, kernels):
     fw.fw_clear_cache()
     kernels.fw_frame_slab.launches = kernels.site_overlap_schur_gmem.launches = 0
     t0 = time.perf_counter()
-    with slater_capture(slater, fw, every=True) as cap:
-        gpu = slater.C_to_MPS(C, tp, device="cuda")
+    with slater_capture(slater, fw, every=("det_fill", "site_overlap_schur")) as cap:
+        gpu = with_fw_mode("1", lambda: slater.C_to_MPS(C, tp, device="cuda"))
         torch.cuda.synchronize()
     t_fw = time.perf_counter() - t0
     launches = {"fw_frame_slab": kernels.fw_frame_slab.launches,
@@ -1274,7 +1392,7 @@ def phase_fw_parity(torch, np, slater, fw, kernels):
         if n <= 0:
             raise AssertionError(f"phase 4c: kernel {name} was not launched")
     t0 = time.perf_counter()
-    exact = with_fw_mode("0", lambda: slater.C_to_MPS(C, tp, device="cuda"))
+    exact = slater.C_to_MPS(C, tp, device="cuda")
     torch.cuda.synchronize()
     t_ex = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1284,7 +1402,7 @@ def phase_fw_parity(torch, np, slater, fw, kernels):
     slater.det_fill, slater.site_overlap_schur = (kernels.det_fill_plain,
                                                   kernels.site_overlap_schur_plain)
     try:
-        twins = slater.C_to_MPS(C, tp, device="cuda")
+        twins = with_fw_mode("1", lambda: slater.C_to_MPS(C, tp, device="cuda"))
     finally:
         slater.det_fill, slater.site_overlap_schur = fill, overlap
     fid = lambda a, b: abs(a.overlap(b)) / np.sqrt(a.norm_squared() * b.norm_squared())  # noqa
@@ -1330,8 +1448,8 @@ def phase_pf_gmem_parity(torch, np, pfaffian, kernels, testing):
     """Phase 4d: BdG past nb = 64: p+ip W=4, Lx=40 (L=160, half blocks up
     to 80 sites, bucket 96) at chi=64, on the card and on the CPU, with
     phase 4b's bounds; bdg_overlap_gmem's launches are counted in the card
-    run, which also keeps one group per shape for its record.  Returns
-    (launches, records)."""
+    run, which also keeps one group per shape for its record; then a device
+    profile of one more card conversion.  Returns (launches, records)."""
     H = testing.pip_hamiltonian(4, 40)
     tp = {"chi_max": 64}
     overlaps, active, nbs = {}, {}, Counter()
@@ -1367,6 +1485,7 @@ def phase_pf_gmem_parity(torch, np, pfaffian, kernels, testing):
     rec = pf_records(torch, np, kernels, "phase 4d", "bdg_overlap_gmem", wide, active, failures)
     if failures:
         raise AssertionError("phase 4d: " + "; ".join(failures))
+    device_profile(torch, lambda: pfaffian.H_to_MPS(H, tp, basis="C", device="cuda"), "phase 4d")
     return launches, {"bdg_overlap_gmem": rec}
 
 
@@ -1390,30 +1509,30 @@ def compare_frontends(np, a, b):
 def phase_slice(torch, np, slater, fw, kernels, profiling):
     """Phase 7: the slice at full size, ``slater.H_to_MPS`` on bench config
     1's W=8 cylinder at L=1024, chi=512, float64, with the FW frontend
-    (auto-on at L >= 768): cold and warm, stage profile, every kernel
-    against its twin on the conversion's own inputs, the exact parts of the
-    state and the chi truncation's effects (SLICE_BOUNDS), a device
-    profile; then one conversion with FW forced off (the exact device
-    frontend), timed for the frontend comparison and held against the FW
-    state (:func:`frontend_checks`)."""
+    forced on (TEMFPY_TORCH_FW=1; its "auto" is off on the card): cold and
+    warm, stage profile, every kernel against its twin on the conversion's
+    own inputs, the exact parts of the state and the chi truncation's
+    effects (SLICE_BOUNDS), a device profile; then one conversion with the
+    default exact device frontend, timed for the frontend comparison and
+    held against the FW state (:func:`frontend_checks`)."""
     H = cylinder(8, 1024)
-    launches, rec, raw = slater_slice(
+    res = with_fw_mode("1", lambda: slater_slice(
         torch, np, slater, fw, kernels, profiling, H, 512, "phase 7",
         ("det_fill", "site_overlap_schur", "site_overlap_schur_gmem", "fw_frame_slab"),
-        bounds=SLICE_BOUNDS)
+        bounds=SLICE_BOUNDS))
     # timed as the FW warm run is (stages synchronised), for the comparison
     torch.cuda.reset_peak_memory_stats()
     with profiling.collect() as prof:
         t0 = time.perf_counter()
-        exact = with_fw_mode("0", lambda: slater.H_to_MPS(H, {"chi_max": 512}, device="cuda"))
+        exact = slater.H_to_MPS(H, {"chi_max": 512}, device="cuda")
         torch.cuda.synchronize()
         t_ex = time.perf_counter() - t0
-    print(f"phase 7: exact device frontend (FW off): warm conversion {t_ex:.3f} s (stages "
+    print(f"phase 7: exact device frontend (the default): warm conversion {t_ex:.3f} s (stages "
           f"synchronised); max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
     print(prof.report(), flush=True)
-    frontend_checks(torch, np, slater, fw, H, 512, raw, exact)
-    return launches, rec
+    frontend_checks(torch, np, slater, fw, H, 512, res["raw"], exact)
+    return res["launches"], res["rec"]
 
 
 def frontend_checks(torch, np, slater, fw, H, chi, fw_state, exact):
@@ -1427,7 +1546,8 @@ def frontend_checks(torch, np, slater, fw, H, chi, fw_state, exact):
       squared Schmidt values agree to FW_SPECTRA_TOL and the charges are
       equal.
     - The same cylinder with phase 4c's seeded 1e-3 disorder, which lifts
-      the degeneracies: FW (auto) against FW off, both at ``chi``, the same
+      the degeneracies: FW (forced on) against the default exact frontend,
+      both at ``chi``, the same
       kept counts on every bond and 1 - fidelity within FW_EXACT_TOL.  A
       wrong frame column or Schur solve at this shape fails here."""
     diag = slater.correlation_matrix(H, device="cuda")[0].diagonal().cpu().numpy()
@@ -1439,12 +1559,12 @@ def frontend_checks(torch, np, slater, fw, H, chi, fw_state, exact):
     tp = {"chi_max": chi}
     fw.fw_clear_cache()
     t0 = time.perf_counter()
-    fw_d = slater.H_to_MPS(Hd, tp, device="cuda")
+    fw_d = with_fw_mode("1", lambda: slater.H_to_MPS(Hd, tp, device="cuda"))
     torch.cuda.synchronize()
     t_fw = time.perf_counter() - t0
     fell_back = fw._CACHE[-1][1] is None
     t0 = time.perf_counter()
-    ex_d = with_fw_mode("0", lambda: slater.H_to_MPS(Hd, tp, device="cuda"))
+    ex_d = slater.H_to_MPS(Hd, tp, device="cuda")
     torch.cuda.synchronize()
     t_ex = time.perf_counter() - t0
     dis = compare_frontends(np, fw_d, ex_d)
@@ -1469,6 +1589,577 @@ def frontend_checks(torch, np, slater, fw, H, chi, fw_state, exact):
                         f"{dis['infidelity']:.3e} > {FW_EXACT_TOL}")
     if failures:
         raise AssertionError("phase 7: " + "; ".join(failures))
+
+
+# --------------------------------------------------------------------------
+# The rank-update fill and the index-row entry points
+# --------------------------------------------------------------------------
+
+SWAP_DIRECT_TOL = 1e-10
+"""Phases 4e and 8: the rank-update path's state against the direct path's,
+1 - fidelity: the JAX package's own bound (tests/test_det_updates.py:90)."""
+SWAP_TENSOR_TOL = 1e-9
+"""Phase 4e: the two paths' site tensors on the card, entry by entry
+(absolute), as tests/test_det_updates.py holds the JAX package's."""
+SWAP_KERNELS = ("swap_tables", "swap_fill", "det_rows")
+
+
+def piflux(W, Lx):
+    """The pi-flux cylinder of tests/test_det_updates.py:131 (bench config
+    4's ansatz): symmetry-degenerate Schmidt spectra whose rank-update
+    classes fail the pre-screen or the probe."""
+    import numpy as np
+
+    L = W * Lx
+    H = np.zeros((L, L))
+    for x in range(Lx):
+        for y in range(W):
+            i = x * W + y
+            if x + 1 < Lx:
+                H[i, i + W] = H[i + W, i] = -1.0 if y % 2 == 0 else 1.0
+            j = x * W + (y + 1) % W
+            H[i, j] = H[j, i] = -1.0
+    return H - 1e-4 * np.diag(np.arange(L))
+
+
+def values_err(kernel, plain, args, kw):
+    """(relative, absolute) kernel-twin difference of one output tensor."""
+    return rel_err(kernel(*args, **kw), plain(*args, **kw))
+
+
+def swap_tables_err(kernel, plain, args, kw):
+    """Worst error over D0, G, P, T2, T3, max|G| and the tables' max, each
+    relative to its own largest entry, given as both figures: the tables of
+    the classes the pre-screen turns away reach ~1e29, so an absolute
+    difference says nothing."""
+    rel = max(rel_err(a, b)[0] for a, b in zip(kernel(*args, **kw), plain(*args, **kw)))
+    return rel, rel
+
+
+def _aug_ld(M, w):
+    """diag(M, I_w) of a CUDA matrix, in extended precision."""
+    import numpy as np
+
+    Ml = _ld(M)
+    Ma = np.eye(Ml.shape[0] + w, dtype=Ml.dtype)
+    Ma[: Ml.shape[0], : Ml.shape[0]] = Ml
+    return Ma
+
+
+def det_rows_ext(torch, kernels, args, kw, n_mats=4, n_dets=4096):
+    """Kernel and twin of det_rows against an extended-precision evaluation
+    on the group's worst matrices and their n_dets most discrepant
+    determinants.  Returns (kernel error, twin error, largest |det|, min
+    |scale| there)."""
+    import numpy as np
+
+    M, ib, ik, scale = args
+    K, T = kernels.det_rows(*args, **kw), kernels.det_rows_plain(*args, **kw)
+    diff = (K - T).abs().flatten(1)
+    e_k = e_t = big = 0.0
+    mats = torch.argsort(diff.amax(1), descending=True)[:n_mats].tolist()
+    for g in mats:
+        q = torch.argsort(diff[g], descending=True)[:n_dets]
+        i, j = (q // ik.shape[1], q % ik.shape[1]) if kw.get("cross") else (q, q)
+        Ma = _aug_ld(M[g], ib.shape[-1])
+        rows, cols = ib[g][i].cpu().numpy(), ik[g][j].cpu().numpy()
+        ref = _lu_det_ld(Ma[rows[:, :, None], cols[:, None, :]]) * _ld(scale[g])
+        e_k = max(e_k, float(np.abs(_ld(K[g].flatten()[q]) - ref).max()))
+        e_t = max(e_t, float(np.abs(_ld(T[g].flatten()[q]) - ref).max()))
+        big = max(big, float(T[g].abs().max()))
+    return e_k, e_t, big, float(scale[mats].abs().min())
+
+
+def _gauss_jordan_ld(A):
+    """(det, inverse) of an (n, w, w) batch by Gauss-Jordan with partial
+    pivoting, in the batch's (extended) precision."""
+    import numpy as np
+
+    n, w, _ = A.shape
+    AB = np.concatenate([A, np.broadcast_to(np.eye(w, dtype=A.dtype), A.shape)], axis=2).copy()
+    ar = np.arange(n)
+    det = np.ones(n, A.dtype)
+    for j in range(w):
+        p = j + np.argmax(np.abs(AB[:, j:, j]), axis=1)
+        row_j = AB[ar, j].copy()
+        AB[ar, j] = AB[ar, p]
+        AB[ar, p] = row_j
+        det = np.where(p != j, -det, det)
+        piv = AB[:, j, j]
+        det = det * piv
+        row = AB[:, j] / np.where(piv == 0, 1, piv)[:, None]
+        f = AB[:, :, j].copy()
+        f[:, j] = 0
+        AB -= f[:, :, None] * row[:, None, :]
+        AB[:, j] = row
+    return det, AB[:, :, w:]
+
+
+def swap_tables_ext(torch, kernels, args, kw, n_entries=8):
+    """Kernel and twin of swap_tables against an extended-precision
+    evaluation (Gauss-Jordan and the three products) on the group's worst
+    entries.  Errors are relative to each output's largest entry there, so
+    the scale returned is 1.  Returns (kernel error, twin error, 1, min
+    |D0| there)."""
+    import numpy as np
+
+    M, r0, c0 = args
+    K, T = kernels.swap_tables(M, r0, c0), kernels.swap_tables_plain(M, r0, c0)
+    per = torch.stack([(a - b).abs().flatten(1).amax(1) / b.abs().flatten(1).amax(1).clamp(
+        min=1e-300) if b.dim() > 1 else (a - b).abs() / b.abs().clamp(min=1e-300)
+        for a, b in zip(K[:5], T[:5])]).amax(0)
+    sel = torch.argsort(per, descending=True)[:n_entries]
+    w = r0.shape[-1]
+    e_k = e_t = 0.0
+    for e in sel.tolist():
+        Ma = _aug_ld(M[e], w)
+        r, c = r0[e].cpu().numpy(), c0[e].cpu().numpy()
+        D0, G = _gauss_jordan_ld(Ma[np.ix_(r, c)][None])
+        P = np.einsum("ij,jk->ik", Ma[:, c], G[0])
+        T2 = np.einsum("ij,jk->ik", G[0], Ma[r, :])
+        T3 = np.einsum("ij,jk->ik", P, Ma[r, :])
+        for ref, kk, tt in zip((D0[0], G[0], P, T2, T3), K[:5], T[:5]):
+            s = max(float(np.abs(ref).max()), 1e-300)
+            e_k = max(e_k, float(np.abs(_ld(kk[e]) - ref).max()) / s)
+            e_t = max(e_t, float(np.abs(_ld(tt[e]) - ref).max()) / s)
+    return e_k, e_t, 1.0, float(K[0][sel].abs().min())
+
+
+def swap_fill_ext(torch, kernels, args, kw, n_units=4, n_pairs=2048):
+    """Kernel and twin of swap_fill (its values, which the scatter mode only
+    places) against an extended-precision evaluation of the same bordered
+    determinants from the same tables, on the group's worst units and their
+    n_pairs most discrepant pairs.  Returns (kernel error, twin error,
+    largest |value|, min |D0 det_always| there)."""
+    import numpy as np
+
+    base, s_b = args[:17], kw["s_b"]
+    K = kernels.swap_fill(*base, s_b=s_b)
+    T = kernels.swap_fill_plain(*base, s_b=s_b)
+    M, det, D0, G, P, T2, T3, Rin, Rout, Rpos, sgr, Cin, Cout, Cpos, sgc, pr, pc = base
+    diff = (K - T).abs()
+    units = torch.argsort(diff.amax(1), descending=True)[:n_units].tolist()
+    e_k = e_t = big = 0.0
+    for u in units:
+        q = torch.argsort(diff[u], descending=True)[:n_pairs]
+        r, c = pr[u][q].long(), pc[u][q].long()
+        ix = {k: t[u][idx][:, :s_b].cpu().numpy() for k, t, idx in (
+            ("rin", Rin, r), ("rout", Rout, r), ("rpos", Rpos, r), ("cin", Cin, c),
+            ("cout", Cout, c), ("cpos", Cpos, c))}
+        Ma = _aug_ld(M[u], G.shape[-1])
+        Gl, Pl, T2l, T3l = (_ld(t[u]) for t in (G, P, T2, T3))
+
+        def gs(X, i, j):
+            return X[i[:, :, None], j[:, None, :]]
+
+        eye = np.eye(s_b, dtype=Ma.dtype)[None]
+        Kb = eye + gs(Pl, ix["rin"], ix["rpos"]) - gs(Pl, ix["rout"], ix["rpos"])
+        Gcr = gs(Gl, ix["cpos"], ix["rpos"])
+        D12 = (gs(Ma, ix["rin"], ix["cin"]) - gs(Ma, ix["rout"], ix["cin"])
+               - gs(Ma, ix["rin"], ix["cout"]) + gs(Ma, ix["rout"], ix["cout"]))
+        X = (gs(T2l, ix["cpos"], ix["cin"]) - gs(T2l, ix["cpos"], ix["cout"])
+             + np.einsum("pij,pjk->pik", Gcr, D12))
+        Z = (gs(T3l, ix["rin"], ix["cin"]) - gs(T3l, ix["rout"], ix["cin"])
+             - gs(T3l, ix["rin"], ix["cout"]) + gs(T3l, ix["rout"], ix["cout"])
+             + np.einsum("pij,pjk->pik", Kb - eye, D12))
+        S = np.concatenate([np.concatenate([Kb, Z], 2), np.concatenate([Gcr, eye + X], 2)], 1)
+        sign = (sgr[u][r] * sgc[u][c]).cpu().numpy()
+        ref = _lu_det_ld(S) * _ld(D0[u]) * sign * _ld(det[u])
+        e_k = max(e_k, float(np.abs(_ld(K[u][q]) - ref).max()))
+        e_t = max(e_t, float(np.abs(_ld(T[u][q]) - ref).max()))
+        big = max(big, float(T[u].abs().max()))
+    return e_k, e_t, big, float((D0[units] * det[units]).abs().min())
+
+
+def det_rows_cost(torch, args, kw, out):
+    """(operations, bytes) of one det_rows group: an LU of the c x c block
+    each determinant needs (c = the real rows of its bra index row), 2c^3/3
+    real operations (x4 complex); every input and the output once."""
+    M, ib, ik, _scale = args
+    c3 = ((ib < M.shape[-1]).sum(-1).double() ** 3).sum() * (ik.shape[1] if kw.get("cross")
+                                                              else 1)
+    mult = 4 if M.is_complex() else 1
+    return float(c3) * 2.0 / 3.0 * mult, nbytes(*(a for a in args if a is not None), out)
+
+
+def swap_tables_cost(torch, args, kw, out):
+    """(operations, bytes) of one swap_tables group: per entry the inverse of
+    the w x w base (2 w^3) and the products P, T2, T3 (2 m_aug w^2 + 2 w^2
+    m_aug + 2 m_aug^2 w) real operations (x4 complex); inputs and outputs
+    once."""
+    M, r0, _c0 = args
+    E, m, _ = M.shape
+    w = r0.shape[-1]
+    ma = m + w
+    mult = 4 if M.is_complex() else 1
+    return E * (2.0 * w**3 + 4.0 * ma * w * w + 2.0 * ma * ma * w) * mult, nbytes(*args, *out)
+
+
+def swap_fill_cost(torch, args, kw, out):
+    """(operations, bytes) of one swap_fill group: per real pair (pad pairs
+    point at the self-swap pad row) an LU of its (2 s_b) x (2 s_b) bordered
+    matrix, 2 (2 s_b)^3 / 3 real operations (x4 complex), the assembly left
+    out.  Bytes: the sites' matrices, the class tables, the swap and pair
+    index tables and the scatter tables once, and the values written: one
+    per real pair in scatter mode, the (U, P_b) values in values mode."""
+    pr, Rin = args[15], args[7]
+    scatter = len(args) > 17
+    real = float((pr != Rin.shape[1] - 1).sum()) if scatter else pr.numel()
+    mult = 4 if args[0].is_complex() else 1
+    n = 2 * kw["s_b"]
+    wrote = written_bytes(pr, Rin.shape[1] - 1, args[0]) if scatter else nbytes(out)
+    return real * 2.0 * n**3 / 3.0 * mult, nbytes(*args) + wrote
+
+
+def pf_gather_cost(torch, args, out):
+    """(operations, bytes) of one pf_gather call: per pair of width k the
+    Parlett-Reid updates of :func:`skew_update_entries` (k / 2), two
+    multiply-adds each (8 real operations per complex one, 2 per real one);
+    inputs and output once."""
+    N, bra, ket = args
+    entries = skew_update_entries((bra.shape[1] + ket.shape[1]) / 2)
+    per = 2 * (CMA_FLOP if N.is_complex() else 2)
+    return bra.shape[0] * ket.shape[0] * entries * per, nbytes(*args, out)
+
+
+def det_rows_library_ms(torch, args, kw):
+    """Milliseconds of torch.linalg.det on each matrix's pre-gathered
+    determinant batch, summed; the gathers are left out."""
+    from temfpy_torch.ops.linalg import block_diag_identity_pad, gather_submatrices
+
+    M, ib, ik, _scale = args
+    total = 0.0
+    for g in range(M.shape[0]):
+        sub = gather_submatrices(block_diag_identity_pad(M[g], ib.shape[-1]), ib[g], ik[g],
+                                 cross=kw.get("cross", False))
+        total += timed(torch, lambda: torch.linalg.det(sub))[1]
+    return total
+
+
+def swap_fill_library_ms(torch, args, kw):
+    """Milliseconds of torch.linalg.det on each unit's pre-assembled
+    bordered matrices S (all P_b pairs), summed; the assembly and the
+    scatter are left out."""
+    from temfpy_torch.ops.linalg import block_diag_identity_pad, swap_bordered
+
+    M, _det, _D0, G, P, T2, T3, Rin, Rout, Rpos, _sgr, Cin, Cout, Cpos, _sgc, pr, pc = args[:17]
+    s_b, total = kw["s_b"], 0.0
+    for u in range(M.shape[0]):
+        r, c = pr[u].long(), pc[u].long()
+        S = swap_bordered(block_diag_identity_pad(M[u], G.shape[-1]), G[u], P[u], T2[u], T3[u],
+                          *(t[u][i][:, :s_b] for t, i in ((Rin, r), (Rout, r), (Rpos, r),
+                                                          (Cin, c), (Cout, c), (Cpos, c))))
+        total += timed(torch, lambda: torch.linalg.det(S))[1]
+    return total
+
+
+CAPTURED.update({
+    "det_rows": ("det_rows", "det_rows_plain", values_err, det_rows_ext, det_rows_cost,
+                 det_rows_library_ms),
+    "swap_tables": ("swap_tables", "swap_tables_plain", swap_tables_err, swap_tables_ext,
+                    swap_tables_cost, None),
+    "swap_fill": ("swap_fill", "swap_fill_plain", values_err, swap_fill_ext, swap_fill_cost,
+                  swap_fill_library_ms),
+})
+
+
+def phase_swap_kernels(torch, kernels, testing):
+    """Phase 3d: the rank-update and index-row kernels against their twins
+    on seeded inputs (KERNEL_RTOL each).
+
+    - det_rows at w in {4, 8, 16, 24, 64}, paired and all pairs, with
+      sentinel tails and all-sentinel rows, float64 and complex128;
+    - swap_tables at w_b in {8, 16, 24} with m_aug = m + w_b from bench
+      config 1's sometimes widths (m = 16, 24, 32);
+    - swap_fill at s_b in {1, 2, 4, 8} in both modes, with self-swap pads,
+      pad pairs and the three scatter layouts; and a class built to pass
+      the pre-screen and fail the probe (testing.random_swap_case's
+      ``fail_probe``): the kernels and the twins must both read the probe
+      as failed, with det_rows' direct values held at KERNEL_RTOL (the swap
+      values of such a class are rounding noise in both, and the class goes
+      direct);
+    - pf_gather at widths 4-32, float64 and complex128.
+    Returns the worst absolute error per kernel."""
+    import numpy as np
+
+    from temfpy_torch import slater
+
+    dev = torch.device("cuda")
+    up = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    worst = {k: 0.0 for k in ("det_rows", "swap_tables", "swap_fill", "pf_gather")}
+
+    def check(name, label, got, ref, t_k, t_p):
+        rel, ab = rel_err(got, ref)
+        if not rel <= KERNEL_RTOL:
+            raise AssertionError(f"phase 3d: {name} {label}: rel err {rel:.3e} > {KERNEL_RTOL}")
+        worst[name] = max(worst[name], ab)
+        print(f"phase 3d: {name} {label}: rel err {rel:.3e}; kernel {t_k:.3f} ms, plain "
+              f"{t_p:.3f} ms", flush=True)
+
+    for dt in ("float64", "complex128"):
+        for w in (4, 8, 16, 24, 64):
+            for cross in (False, True):
+                n, nk = (256, 64) if cross else (16384, None)
+                (M, ib, ik, sc), kw = testing.random_det_rows_case(w, G=4, w=w, m=max(w, 32),
+                                                                   n=n, nk=nk, cross=cross,
+                                                                   dtype=dt)
+                a = [up(x) for x in (M, ib, ik, sc)]
+                got = kernels.det_rows(*a, **kw)
+                t_k = cuda_ms(lambda: kernels.det_rows(*a, **kw), 5)
+                t_p = cuda_ms(lambda: kernels.det_rows_plain(*a, **kw), 1)
+                check("det_rows", f"w={w} {'cross 256x64' if cross else 'paired 16384'} {dt} "
+                      f"G=4", got, kernels.det_rows_plain(*a, **kw), t_k, t_p)
+    for c, m in ((6, 16), (12, 24), (20, 32)):
+        for dt in ("float64", "complex128"):
+            M, r0, c0, _args, _kw, _rows = testing.random_swap_case(c, U=64, m=m, c=c, s_b=1,
+                                                                    n_rows=8, P=10, dtype=dt)
+            a = [up(x) for x in (M, r0, c0)]
+            rel, _ = swap_tables_err(kernels.swap_tables, kernels.swap_tables_plain, a, {})
+            if not rel <= KERNEL_RTOL:
+                raise AssertionError(f"phase 3d: swap_tables w_b={r0.shape[1]} m={m} {dt}: rel "
+                                     f"err {rel:.3e}")
+            worst["swap_tables"] = max(worst["swap_tables"], rel)
+            t_k = cuda_ms(lambda: kernels.swap_tables(*a), 5)
+            t_p = cuda_ms(lambda: kernels.swap_tables_plain(*a), 1)
+            print(f"phase 3d: swap_tables w_b={r0.shape[1]} m_aug={m + r0.shape[1]} {dt} E=64: "
+                  f"rel err {rel:.3e}; kernel {t_k:.3f} ms, plain {t_p:.3f} ms", flush=True)
+    cases = [(1, 6, 16, "rc"), (2, 6, 16, "rrc"), (4, 12, 24, "crr"), (8, 20, 32, "rrc")]
+    for (s_b, c, m, spec), dt in [(x, "float64") for x in cases] + [(cases[2], "complex128")]:
+        M, r0, c0, args, kw, _rows = testing.random_swap_case(
+            s_b, U=8, m=m, c=c, s_b=s_b, n_rows=256, P=60000, spec=spec, dtype=dt)
+        tab = kernels.swap_tables(up(M), up(r0), up(c0))
+        (Mm, det, Rin, Rout, Rpos, sgr, Cin, Cout, Cpos, sgc, pr, pc, tabs, _chk) = args
+        fa = [up(Mm), up(det), *tab[:5], *(up(x) for x in (Rin, Rout, Rpos, sgr, Cin, Cout, Cpos,
+                                                            sgc, pr, pc))]
+        ta = tuple(up(t) for t in tabs)
+        shape = kw["shape"]
+        # in place, the units in reverse order into slots of one buffer
+        U = len(M)
+        buf = torch.zeros((U, shape[0] + 1) + tuple(shape[1:]), dtype=tab[0].dtype, device=dev)
+        kw_in = {**kw, "out": buf, "slot": list(range(U - 1, -1, -1))}
+        T = kernels.swap_fill(*fa, ta, **kw_in).flip(0)
+        T0 = kernels.swap_fill_plain(*fa, ta, **kw)
+        t_k = cuda_ms(lambda: kernels.swap_fill(*fa, ta, **kw_in), 5)
+        t_p = cuda_ms(lambda: kernels.swap_fill_plain(*fa, ta, **kw), 1)
+        label = f"s_b={s_b} w_b={r0.shape[1]} m={m} {spec} {dt} U=8 P=60000"
+        check("swap_fill", label + " scatter", T, T0, t_k, t_p)
+        v = kernels.swap_fill(*fa, s_b=s_b)
+        check("swap_fill", label + " values", v, kernels.swap_fill_plain(*fa, s_b=s_b),
+              cuda_ms(lambda: kernels.swap_fill(*fa, s_b=s_b), 5),
+              cuda_ms(lambda: kernels.swap_fill_plain(*fa, s_b=s_b), 1))
+    # a class that passes the pre-screen and fails the probe
+    for fail in (False, True):
+        M, r0, c0, args, kw, (ib, ik) = testing.random_swap_case(
+            8, U=4, m=26, c=12, s_b=4, n_rows=64, P=3000, spec="rrc", fail_probe=fail)
+        (Mm, det, Rin, Rout, Rpos, sgr, Cin, Cout, Cpos, sgc, pr, pc, _tabs, chk) = args
+        verdicts = []
+        for tables, fill, rows in ((kernels.swap_tables, kernels.swap_fill, kernels.det_rows),
+                                   (kernels.swap_tables_plain, kernels.swap_fill_plain,
+                                    kernels.det_rows_plain)):
+            tab = tables(up(Mm), up(r0), up(c0))
+            screen = float(tab[0].abs().min()) >= 1e-12 and float(
+                torch.maximum(tab[5], tab[6]).max()) <= slater._SWAP_GMAX
+            sw = fill(up(Mm), up(det), *tab[:5], *(up(x) for x in (
+                Rin, Rout, Rpos, sgr, Cin, Cout, Cpos, sgc)),
+                up(np.take_along_axis(pr, chk, 1)), up(np.take_along_axis(pc, chk, 1)),
+                s_b=kw["s_b"])
+            dr = rows(up(Mm), up(ib), up(ik), up(det))
+            verdicts.append((screen, [slater._probe_ok([(sw[u].cpu().numpy(),
+                                                         dr[u].cpu().numpy())])
+                                      for u in range(4)], dr))
+        (s1, v1, dr1), (s0, v0, dr0) = verdicts
+        check("det_rows", f"probe rows of the {'failing' if fail else 'passing'} class", dr1,
+              dr0, 0.0, 0.0)
+        print(f"phase 3d: {'probe-failing' if fail else 'plain'} seeded class: pre-screen passed "
+              f"{s1} (twins {s0}); probe verdicts {v1} (twins {v0})", flush=True)
+        if not (s1 and s0 and v1 == v0 == [not fail] * 4):
+            raise AssertionError(f"phase 3d: the {'failing' if fail else 'plain'} class: "
+                                 f"screen {s1}/{s0}, probe {v1}/{v0}")
+    for dt in ("float64", "complex128"):
+        for kb, kk in ((2, 2), (4, 4), (8, 8), (12, 4), (16, 16)):
+            N, bra, ket, pad = testing.random_pf_gather_case(kb, m=64, nb=256, nk=128, kb=kb,
+                                                             kk=kk, dtype=dt)
+            a = [up(x) for x in (N, bra, ket)]
+            got = kernels.pf_gather(*a, pad)
+            check("pf_gather", f"k={kb + kk} (kb={kb}, kk={kk}) {dt} 256x128 pairs", got,
+                  kernels.pf_gather_plain(*a, pad), cuda_ms(lambda: kernels.pf_gather(*a, pad), 5),
+                  cuda_ms(lambda: kernels.pf_gather_plain(*a, pad), 1))
+    return worst
+
+
+def phase_index_row_ops(torch, np, kernels, testing):
+    """Phase 3e: the public index-row entry points on the card against the
+    CPU on seeded inputs: ``ops.linalg.batched_det_pairs`` /
+    ``batched_det_gather`` (det_rows) and ``ops.pfaffian.
+    batched_pfaffian_gather`` (pf_gather), KERNEL_RTOL.  pf_gather has no
+    other caller, so this phase is its main path: its launch count is set
+    to 0 just before and read just after, and its record is taken from
+    these calls.  Returns (launches, pf_gather record)."""
+    from temfpy_torch.ops import linalg, pfaffian as opf
+
+    dev = torch.device("cuda")
+    (M, ib, ik, _sc), _kw = testing.random_det_rows_case(31, G=1, w=12, m=40, n=600, nk=300,
+                                                         cross=True)
+    Mc, Mg = torch.as_tensor(M[0]), torch.as_tensor(M[0], device=dev)
+    for name, fn, a in (("batched_det_gather", linalg.batched_det_gather, (ib[0], ik[0])),
+                        ("batched_det_pairs", linalg.batched_det_pairs, (ib[0][:300], ik[0]))):
+        n0 = kernels.det_rows.launches
+        got = fn(Mg, *a, chunk=256)
+        rel = rel_err(got.cpu(), fn(Mc, *a))[0]
+        n = kernels.det_rows.launches - n0
+        print(f"phase 3e: ops.linalg.{name} {tuple(got.shape)} on the card: {n} det_rows "
+              f"launches, rel err against the CPU {rel:.3e}", flush=True)
+        if not (rel <= KERNEL_RTOL and n > 0):
+            raise AssertionError(f"phase 3e: {name}")
+    cases = [testing.random_pf_gather_case(kb * 7 + kk, m=96, nb=512, nk=256, kb=kb, kk=kk,
+                                           dtype=dt)
+             for kb, kk, dt in ((8, 8, "complex128"), (16, 16, "complex128"),
+                                (12, 4, "float64"))]
+    # the main path: the public entry point on the card, counted alone
+    kernels.pf_gather.launches = 0
+    gots = [opf.batched_pfaffian_gather(torch.as_tensor(N, device=dev), bra, ket, pad)
+            for N, bra, ket, pad in cases]
+    launches = {"pf_gather": kernels.pf_gather.launches}
+    if launches["pf_gather"] <= 0:
+        raise AssertionError("phase 3e: pf_gather was not launched")
+    rec = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None}
+    flops = nbyte = 0.0
+    for (N, bra, ket, pad), got in zip(cases, gots):
+        ref = opf.batched_pfaffian_gather(torch.as_tensor(N), bra, ket, pad)
+        rel, ab = rel_err(got.cpu(), ref)
+        # timed on inputs already on the card (no index upload)
+        a = [torch.as_tensor(x, device=dev) for x in (N, bra, ket)]
+        _, t_k = timed(torch, lambda: kernels.pf_gather(*a, pad))
+        _, t_p = timed(torch, lambda: kernels.pf_gather_plain(*a, pad))
+        f, b = pf_gather_cost(torch, a, got)
+        t_b, _ = bound_ms(f, b)
+        k = bra.shape[1] + ket.shape[1]
+        print(f"phase 3e: ops.pfaffian.batched_pfaffian_gather k={k} {N.dtype} 512x256: rel err "
+              f"against the CPU {rel:.3e}; kernel {t_k:.3f} ms, plain {t_p:.3f} ms, bound "
+              f"{t_b:.4f} ms", flush=True)
+        if not rel <= KERNEL_RTOL:
+            raise AssertionError(f"phase 3e: batched_pfaffian_gather k={k}: {rel:.3e}")
+        rec["max_abs_err"] = max(rec["max_abs_err"], ab)
+        rec["ms"] += t_k
+        rec["plain_ms"] += t_p
+        rec["bound_ms"] += t_b
+        flops, nbyte = flops + f, nbyte + b
+    rec["bound_by"] = bound_ms(flops, nbyte)[1]
+    return launches, {"pf_gather": rec}
+
+
+def phase_swap_parity(torch, np, slater, kernels):
+    """Phase 4e: ``slater.C_to_MPS`` with the rank-update path forced on
+    (TEMFPY_TORCH_DET_UPDATES=1) on the card against the CPU (twins), on
+    the W=8, L=32 cylinder at chi=96 (tests/test_det_updates.py:73) and on
+    the pi-flux W=4, Lx=8 cylinder, spinful "PH", chi=128
+    (tests/test_det_updates.py:131), where classes fail the pre-screen or
+    the probe: PARITY_TOL on fidelity and squared Schmidt values, equal
+    charges; the card's swap state against its direct state
+    (SWAP_DIRECT_TOL, tensors to SWAP_TENSOR_TOL); swap_tables, swap_fill
+    and det_rows launched; no wasted swap fill.  Returns det_rows' launches
+    in the cylinder's card run."""
+    out = {}
+    for name, H, tp, spinful in (("W=8 L=32 chi=96", cylinder(8, 32), {"chi_max": 96}, None),
+                                 ("pi-flux W=4 Lx=8 PH chi=128", piflux(4, 8),
+                                  {"chi_max": 128}, "PH")):
+        C = slater.correlation_matrix(H, device="cpu")[0].numpy()
+        for k in SWAP_KERNELS:
+            getattr(kernels, k).launches = 0
+        t0 = time.perf_counter()
+        gpu = with_det_updates("1", lambda: slater.C_to_MPS(C, tp, spinful=spinful,
+                                                            device="cuda"))
+        torch.cuda.synchronize()
+        t_gpu = time.perf_counter() - t0
+        stats = dict(slater._swap_stats())
+        launches = {k: getattr(kernels, k).launches for k in SWAP_KERNELS}
+        out.setdefault("det_rows", launches["det_rows"])
+        cpu = with_det_updates("1", lambda: slater.C_to_MPS(C, tp, spinful=spinful,
+                                                            device="cpu"))
+        stats_cpu = dict(slater._swap_stats())
+        direct = with_det_updates("0", lambda: slater.C_to_MPS(C, tp, spinful=spinful,
+                                                               device="cuda"))
+        fid = abs(gpu.overlap(cpu)) / np.sqrt(gpu.norm_squared() * cpu.norm_squared())
+        d_sv, d_w = spectra_diff(np, gpu, cpu)
+        f_dir = abs(gpu.overlap(direct)) / np.sqrt(gpu.norm_squared() * direct.norm_squared())
+        d_t = max(float((a - b).abs().max()) for a, b in zip(gpu._B, direct._B))
+        print(f"phase 4e: {name}: launches {launches}; classes on the card {stats}, on the CPU "
+              f"{stats_cpu}; card vs CPU 1 - fidelity {1 - fid:.3e}, squared-Schmidt diff "
+              f"{d_w:.3e}, charges identical; card swap vs card direct 1 - fidelity "
+              f"{1 - f_dir:.3e}, max tensor diff {d_t:.3e}; card {t_gpu:.2f} s", flush=True)
+        if not (fid >= 1 - PARITY_TOL and d_w <= PARITY_TOL):
+            raise AssertionError(f"phase 4e: {name}: card and CPU differ beyond {PARITY_TOL}")
+        if not (1 - f_dir <= SWAP_DIRECT_TOL and d_t <= SWAP_TENSOR_TOL):
+            raise AssertionError(f"phase 4e: {name}: swap and direct paths differ")
+        if not (all(n > 0 for n in launches.values()) and stats["classes"] > 0
+                and stats["wasted"] == 0):
+            raise AssertionError(f"phase 4e: {name}: launches {launches}, classes {stats}")
+    return out
+
+
+def phase_swap_slice(torch, np, slater, fw, kernels, profiling, direct):
+    """Phase 8: the slice at full size with the rank-update path on,
+    ``slater.H_to_MPS`` on bench config 1's cylinder (W=8, L=256, chi=512,
+    float64) under TEMFPY_TORCH_DET_UPDATES=1, with phase 5's records and
+    bounds (:func:`slater_slice`: cold with the launches of K1, K2, K5,
+    K6a and K6b, warm with the stage profile, a device profile); every
+    swap_tables, swap_fill and det_rows group of the warm run held against
+    its twin (extended precision for ill-conditioned groups); the classes,
+    fallbacks and pairs routed swap and direct; the state against phase
+    5's direct state ``direct`` (its dict): 1 - fidelity within
+    SWAP_DIRECT_TOL, squared Schmidt values and charges equal, the sites
+    whose tensors part most; then both paths' warm conversions in turns
+    (direct, swap, swap, direct), for the wall time both ways.  Returns
+    (launches, records)."""
+    H = cylinder(8, 256)
+    counted = ("det_fill", "site_overlap_schur") + SWAP_KERNELS
+    res = with_det_updates("1", lambda: slater_slice(
+        torch, np, slater, fw, kernels, profiling, H, 512, "phase 8", counted,
+        bounds=PHASE5_BOUNDS, every=SWAP_KERNELS))
+    cap, stats = res["cap"], res["stats"]
+    pairs = {k: int(v) for k, v in cap["pairs"].items()}
+    print(f"phase 8: rank-update classes {stats}; real pairs routed swap {pairs['swap']}, "
+          f"direct {pairs['direct']}", flush=True)
+    if stats["classes"] <= 0 or stats["wasted"] != 0 or pairs["swap"] <= 0:
+        raise AssertionError(f"phase 8: classes {stats}, pairs {pairs}")
+    held, ext = Counter(), {}
+    for name, key, (args, kw) in cap["every"]:
+        _rel, _ab, e = hold(torch, kernels, "phase 8", name, key, args, kw)
+        held[name] += 1
+        if e is not None:
+            ext.setdefault(name, []).append(e[0] / max(e[1], 1e-300))
+    print(f"phase 8: every rank-update group of the warm run held against its twin: "
+          f"{dict(held)}; beyond {KERNEL_RTOL} relative (to the group's largest entry) and "
+          f"held against extended precision: "
+          f"{ {k: len(ext.get(k, [])) for k in held} }; their kernel/twin error ratios "
+          f"there: { {k: [f'{r:.3g}' for r in sorted(v)] for k, v in ext.items()} }",
+          flush=True)
+    raw, ref = res["raw"], direct["raw"]
+    fid = abs(raw.overlap(ref)) / np.sqrt(raw.norm_squared() * ref.norm_squared())
+    d_sv, d_w = spectra_diff(np, raw, ref)
+    part = {i: rel_err(a, b)[0] for i, (a, b) in enumerate(zip(raw._B, ref._B))}
+    worst_sites = sorted(part, key=part.get, reverse=True)[:4]
+    print(f"phase 8: swap path vs phase 5's direct path: 1 - fidelity {1 - fid:.3e}, max "
+          f"squared-Schmidt diff {d_w:.3e}, charges identical; sites whose tensors part most "
+          f"(rel): {({i: f'{part[i]:.3e}' for i in worst_sites})}", flush=True)
+    if not (1 - fid <= SWAP_DIRECT_TOL and d_w <= PARITY_TOL):
+        raise AssertionError(f"phase 8: swap vs direct 1 - fidelity {1 - fid:.3e} > "
+                             f"{SWAP_DIRECT_TOL} or squared Schmidt values {d_w:.3e} apart")
+    # the two paths' warm wall times, in turns (direct, swap, swap, direct),
+    # stages synchronised as in the warm runs above
+    times, reports = {"0": [], "1": []}, {}
+    for mode in ("0", "1", "1", "0"):
+        with profiling.collect() as prof:
+            t0 = time.perf_counter()
+            with_det_updates(mode, lambda: slater.H_to_MPS(H, {"chi_max": 512}, device="cuda"))
+            torch.cuda.synchronize()
+            times[mode].append(time.perf_counter() - t0)
+        reports[mode] = prof.report()
+    print(f"phase 8: warm conversions in turns (stages synchronised): swap path "
+          f"{times['1']} s, direct path {times['0']} s", flush=True)
+    for mode, name in (("1", "swap path"), ("0", "direct path")):
+        print(f"phase 8: stage profile, {name}:\n{reports[mode]}", flush=True)
+    return res["launches"], res["rec"]
 
 
 def main() -> int:
@@ -1509,27 +2200,50 @@ def main() -> int:
     def elapsed(label):
         print(f"{label}: done {time.perf_counter() - t_start:.1f} s after the build", flush=True)
 
+    # the phases of the earlier slices run the direct fill on both devices
+    # (the CPU's default is the rank-update path); 4e and 8 turn it on
+    os.environ["TEMFPY_TORCH_DET_UPDATES"] = "0"
     worst = phase_kernels(torch, kernels, testing)
     elapsed("phase 3")
     worst.update(phase_pf_kernels(torch, kernels, testing))
     elapsed("phase 3b")
     worst.update(phase_fw_kernels(torch, kernels, testing))
     elapsed("phase 3c")
+    worst_swap = phase_swap_kernels(torch, kernels, testing)
+    elapsed("phase 3d")
+    launches, rec = phase_index_row_ops(torch, np, kernels, testing)
+    elapsed("phase 3e")
     phase_parity(torch, np, slater)
     phase_pf_parity(torch, np, pfaffian, testing)
     elapsed("phases 4, 4b")
     phase_fw_parity(torch, np, slater, fw, kernels)
     elapsed("phase 4c")
-    launches, rec = phase_pf_gmem_parity(torch, np, pfaffian, kernels, testing)
+    n, r = phase_pf_gmem_parity(torch, np, pfaffian, kernels, testing)
+    launches.update(n)
+    rec.update(r)
     elapsed("phase 4d")
-    for label, phase in (
-            ("phase 5", lambda: phase_full(torch, np, slater, fw, kernels, profiling)),
-            ("phase 6", lambda: phase_pfaffian_full(torch, np, pfaffian, kernels, profiling,
-                                                    testing))):
-        n, r = phase()
-        launches.update(n)
-        rec.update(r)
-        elapsed(label)
+    rows_4e = phase_swap_parity(torch, np, slater, kernels)
+    elapsed("phase 4e")
+    direct = phase_full(torch, np, slater, fw, kernels, profiling)
+    launches.update(direct["launches"])
+    rec.update(direct["rec"])
+    elapsed("phase 5")
+    # phase 8 reads its own counts; det_fill and site_overlap_schur keep
+    # phase 5's (their slice), their errors take the worst of both
+    n8, r8 = phase_swap_slice(torch, np, slater, fw, kernels, profiling, direct)
+    del direct
+    elapsed("phase 8")
+    for k in SWAP_KERNELS:
+        launches[k] = n8[k]
+        rec[k] = r8[k]
+    if launches["det_rows"] == 0:
+        launches["det_rows"] = rows_4e["det_rows"]
+    for k in ("det_fill", "site_overlap_schur"):
+        rec[k]["max_abs_err"] = max(rec[k]["max_abs_err"], r8[k]["max_abs_err"])
+    n, r = phase_pfaffian_full(torch, np, pfaffian, kernels, profiling, testing)
+    launches.update(n)
+    rec.update(r)
+    elapsed("phase 6")
     # phase 7 reads its own counts; det_fill and site_overlap_schur keep
     # phase 5's (their slice), their errors take the worst of both
     n7, r7 = phase_slice(torch, np, slater, fw, kernels, profiling)
@@ -1539,7 +2253,7 @@ def main() -> int:
         rec[k] = r7[k]
     for k in ("det_fill", "site_overlap_schur"):
         rec[k]["max_abs_err"] = max(rec[k]["max_abs_err"], r7[k]["max_abs_err"])
-    for k, ab in worst.items():
+    for k, ab in list(worst.items()) + list(worst_swap.items()):
         rec[k]["max_abs_err"] = max(rec[k]["max_abs_err"], ab)
 
     meta = {
@@ -1557,6 +2271,14 @@ def main() -> int:
                              "temfpy_tpu/pfaffian.py:772"),
         "fw_frame_slab": ("temfpy_torch/csrc/fw_frame_slab.cu",
                           "temfpy_tpu/ops/fw.py:314"),
+        "swap_tables": ("temfpy_torch/csrc/swap_tables.cu",
+                        "temfpy_tpu/ops/linalg.py:741"),
+        "swap_fill": ("temfpy_torch/csrc/swap_fill.cu",
+                      "temfpy_tpu/slater.py:1038"),
+        "det_rows": ("temfpy_torch/csrc/det_rows.cu",
+                     "temfpy_tpu/ops/linalg.py:540"),
+        "pf_gather": ("temfpy_torch/csrc/pf_gather.cu",
+                      "temfpy_tpu/ops/pfaffian.py:502"),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     out = [{"name": k, "route": "cuda", "source": src, "replaces": rep,

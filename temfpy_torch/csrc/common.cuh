@@ -95,3 +95,105 @@ __device__ __forceinline__ int block_argmax_first(double v, int i) {
     __syncthreads();
     return s_win;
 }
+
+// Determinant of the w x w matrix A (row stride W, w <= W) held by ONE
+// thread, by LU with partial pivoting: the first row of maximal |A[i, k]|
+// (i >= k) is the pivot, as in temfpy_tpu/ops/linalg.py:_lu_det_body; a
+// zero pivot makes the determinant 0 without dividing by it.  A is
+// overwritten.  Used by det_fill, det_rows and swap_fill.
+template <typename T, int W>
+__device__ __forceinline__ T lu_det_private(T* A, int w) {
+    T det = Num<T>::one();
+    for (int k = 0; k < w; ++k) {
+        int piv_row = k;
+        double best = Num<T>::mag(A[k * W + k]);
+        for (int i = k + 1; i < w; ++i) {
+            const double v = Num<T>::mag(A[i * W + k]);
+            if (v > best) {
+                best = v;
+                piv_row = i;
+            }
+        }
+        if (piv_row != k) {
+            for (int j = k; j < w; ++j) {
+                const T tmp = A[k * W + j];
+                A[k * W + j] = A[piv_row * W + j];
+                A[piv_row * W + j] = tmp;
+            }
+            det = -det;
+        }
+        const T piv = A[k * W + k];
+        det = det * piv;
+        const T safe = Num<T>::is_zero(piv) ? Num<T>::one() : piv;
+        for (int i = k + 1; i < w; ++i) {
+            const T f = A[i * W + k] / safe;
+            for (int j = k + 1; j < w; ++j) A[i * W + j] = A[i * W + j] - f * A[k * W + j];
+        }
+    }
+    return det;
+}
+
+// Pfaffian of the tot x tot skew-symmetric matrix A (row stride W, tot even,
+// tot <= W <= 32) in shared memory, computed by ONE warp (all 32 lanes call
+// it; u is a W-entry shared scratch row): Parlett-Reid with partial
+// pivoting, as temfpy_tpu/ops/pfaffian.py:_pfaffian_single.  At step k (even)
+// the largest |A[j, k]|, j > k (first on ties), is swapped into row and
+// column k+1 (sign flip), the Pfaffian is multiplied by A[k, k+1], and the
+// trailing block takes the rank-2 skew update
+//   A[i, j] += u[i] A[j, k+1] - A[i, k+1] u[j],  u = A[k, :] / A[k, k+1].
+// A zero pivot makes the Pfaffian 0.  A is overwritten; every lane returns
+// the same value.  Used by pf_fill and pf_gather.
+template <typename T, int W>
+__device__ __forceinline__ T warp_parlett_reid(T* A, T* u, int tot, int lane) {
+    constexpr unsigned full = 0xffffffffu;
+    T pf = Num<T>::one();
+    for (int k = 0; k < tot; k += 2) {
+        const int j = k + 1 + lane;
+        double best = (j < tot) ? Num<T>::mag(A[j * W + k]) : -1.0;
+        int bj = j;
+        for (int off = 16; off > 0; off >>= 1) {
+            const double v2 = __shfl_down_sync(full, best, off);
+            const int j2 = __shfl_down_sync(full, bj, off);
+            if (v2 > best || (v2 == best && j2 < bj)) {
+                best = v2;
+                bj = j2;
+            }
+        }
+        const int kp = __shfl_sync(full, bj, 0);
+        if (kp != k + 1) {
+            for (int t = lane; t < tot; t += 32) {
+                const T tmp = A[(k + 1) * W + t];
+                A[(k + 1) * W + t] = A[kp * W + t];
+                A[kp * W + t] = tmp;
+            }
+            __syncwarp();
+            for (int t = lane; t < tot; t += 32) {
+                const T tmp = A[t * W + k + 1];
+                A[t * W + k + 1] = A[t * W + kp];
+                A[t * W + kp] = tmp;
+            }
+            __syncwarp();
+            pf = -pf;
+        }
+        const T akk1 = A[k * W + k + 1];
+        pf = pf * akk1;
+        if (Num<T>::is_zero(akk1)) break;  // the same value in every lane
+        const int n = tot - k - 2;
+        for (int i = k + 2 + lane; i < tot; i += 32) u[i] = A[k * W + i] / akk1;
+        __syncwarp();
+        for (int e = lane; e < n * n; e += 32) {
+            const int i = k + 2 + e / n, jj = k + 2 + e % n;
+            A[i * W + jj] = A[i * W + jj] + (u[i] * A[jj * W + k + 1] - A[i * W + k + 1] * u[jj]);
+        }
+        __syncwarp();
+    }
+    return pf;
+}
+
+// Entry (a, b) of M_aug = diag(M, I) for an m x m row-major M: indices >= m
+// are sentinels of the identity extension, never formed.
+template <typename T>
+__device__ __forceinline__ T identity_ext(const T* M, int m, int a, int b) {
+    if (a < m && b < m) return M[(long long)a * m + b];
+    return (a == b) ? Num<T>::one() : Num<T>::zero();
+}

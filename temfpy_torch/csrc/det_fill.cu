@@ -9,22 +9,24 @@
 // Per (bra, ket) pair p of site g:
 //   r = pr[g, p], c = pc[g, p]
 //   A[s, t] = M_aug[occ_b[g, r, s], occ_k[g, c, t]]   (w x w)
-//   T[g, tab0[..], tab1[..], tab2[..]] = det(A) * det_always[g]
+//   out[slot[g], tab0[..], tab1[..], tab2[..]] = det(A) * det_always[g]
 // where M_aug = diag(M[g], I_w) is never formed: an index >= m is a
 // sentinel of the identity extension, so such an entry is 1 if the bra and
 // ket indices are equal and 0 otherwise.  Each table is indexed by r or by c
-// according to bit i of `sel` (the JAX `spec`: "rc", "rrc", "crr").  Padded
-// pairs carry all-sentinel rows and land in the trash row T[g, D0] that the
-// wrapper slices off.
+// according to bit i of `sel` (the JAX `spec`: "rc", "rrc", "crr").  `out` is
+// the caller's zeroed buffer of bucketed site tensors, each with a trash row
+// out[., D0] that padded pairs (all-sentinel rows) land in; the fills of one
+// site write disjoint entries, so several sites of a group, or several
+// groups, may share a slot.  The wrapper slices the trash row off.
 //
 // What bounds it on the H100: f64 arithmetic of many tiny LUs (w^3/3 FMAs
 // per pair, w <= 64) and the latency of the scattered gathers from M and
 // the index tables.  The design: one thread per pair, the w x w matrix in
 // thread-private memory (registers for w <= 8, local memory cached in L1
 // above), M read straight from global memory (it is a few KB per site and
-// stays in L1/L2), no shared memory and no synchronisation, so blocks run
-// fully independently.  The width is a template bound (4, 8, 16, 32, 64)
-// so small buckets get small private arrays.  No allocation, no sync: the
+// stays in L1/L2), the LU of common.cuh:lu_det_private, no shared memory
+// and no synchronisation, so blocks run fully independently.  The width is a
+// template bound (4, 8, 16, 32, 64) so small buckets get small private arrays.  No allocation, no sync: the
 // kernel runs on the caller's stream.
 
 #include "common.cuh"
@@ -36,7 +38,8 @@ __global__ void det_fill_kernel(const T* __restrict__ M, const T* __restrict__ d
                                 const int* __restrict__ occ_b, const int* __restrict__ occ_k,
                                 const int* __restrict__ pr, const int* __restrict__ pc,
                                 const int* __restrict__ tab0, const int* __restrict__ tab1,
-                                const int* __restrict__ tab2, T* __restrict__ out, int m, int w,
+                                const int* __restrict__ tab2, const int* __restrict__ slot,
+                                T* __restrict__ out, int m, int w,
                                 int R_b, int K_b, int P_b, int n0, int n1, int n2, int sel,
                                 int D0p1, int D1, int D2) {
     const int g = blockIdx.y;
@@ -66,33 +69,7 @@ __global__ void det_fill_kernel(const T* __restrict__ M, const T* __restrict__ d
 
     // LU with partial pivoting; first maximal |A[i, k]| wins, as in
     // temfpy_tpu/ops/linalg.py:_lu_det_body
-    T det = Num<T>::one();
-    for (int k = 0; k < w; ++k) {
-        int piv_row = k;
-        double best = Num<T>::mag(A[k * W + k]);
-        for (int i = k + 1; i < w; ++i) {
-            const double v = Num<T>::mag(A[i * W + k]);
-            if (v > best) {
-                best = v;
-                piv_row = i;
-            }
-        }
-        if (piv_row != k) {
-            for (int j = k; j < w; ++j) {
-                const T tmp = A[k * W + j];
-                A[k * W + j] = A[piv_row * W + j];
-                A[piv_row * W + j] = tmp;
-            }
-            det = -det;
-        }
-        const T piv = A[k * W + k];
-        det = det * piv;
-        const T safe = Num<T>::is_zero(piv) ? Num<T>::one() : piv;
-        for (int i = k + 1; i < w; ++i) {
-            const T f = A[i * W + k] / safe;
-            for (int j = k + 1; j < w; ++j) A[i * W + j] = A[i * W + j] - f * A[k * W + j];
-        }
-    }
+    T det = lu_det_private<T, W>(A, w);
     det = det * det_always[g];
 
     const int i0 = (sel & 1) ? c : r;
@@ -101,29 +78,29 @@ __global__ void det_fill_kernel(const T* __restrict__ M, const T* __restrict__ d
     const int c0 = tab0[(long long)g * n0 + i0];
     const int c1 = tab1[(long long)g * n1 + i1];
     const int c2 = n2 ? tab2[(long long)g * n2 + i2] : 0;
-    out[(((long long)g * D0p1 + c0) * D1 + c1) * D2 + c2] = det;
+    out[(((long long)slot[g] * D0p1 + c0) * D1 + c1) * D2 + c2] = det;
 }
 
 template <typename T, int W>
 void launch(const void* M, const void* det_always, const int* occ_b, const int* occ_k,
             const int* pr, const int* pc, const int* tab0, const int* tab1, const int* tab2,
-            void* out, int G, int m, int w, int R_b, int K_b, int P_b, int n0, int n1, int n2,
-            int sel, int D0p1, int D1, int D2, cudaStream_t stream) {
+            const int* slot, void* out, int G, int m, int w, int R_b, int K_b, int P_b, int n0,
+            int n1, int n2, int sel, int D0p1, int D1, int D2, cudaStream_t stream) {
     const int threads = 128;
     dim3 grid((P_b + threads - 1) / threads, G);
     det_fill_kernel<T, W><<<grid, threads, 0, stream>>>(
-        (const T*)M, (const T*)det_always, occ_b, occ_k, pr, pc, tab0, tab1, tab2, (T*)out, m,
-        w, R_b, K_b, P_b, n0, n1, n2, sel, D0p1, D1, D2);
+        (const T*)M, (const T*)det_always, occ_b, occ_k, pr, pc, tab0, tab1, tab2, slot,
+        (T*)out, m, w, R_b, K_b, P_b, n0, n1, n2, sel, D0p1, D1, D2);
 }
 
 template <typename T>
 int dispatch(const void* M, const void* det_always, const int* occ_b, const int* occ_k,
              const int* pr, const int* pc, const int* tab0, const int* tab1, const int* tab2,
-             void* out, int G, int m, int w, int R_b, int K_b, int P_b, int n0, int n1, int n2,
-             int sel, int D0p1, int D1, int D2, cudaStream_t stream) {
-#define TF_LAUNCH(WW)                                                                        \
-    launch<T, WW>(M, det_always, occ_b, occ_k, pr, pc, tab0, tab1, tab2, out, G, m, w, R_b, \
-                  K_b, P_b, n0, n1, n2, sel, D0p1, D1, D2, stream)
+             const int* slot, void* out, int G, int m, int w, int R_b, int K_b, int P_b, int n0,
+             int n1, int n2, int sel, int D0p1, int D1, int D2, cudaStream_t stream) {
+#define TF_LAUNCH(WW)                                                                         \
+    launch<T, WW>(M, det_always, occ_b, occ_k, pr, pc, tab0, tab1, tab2, slot, out, G, m, w, \
+                  R_b, K_b, P_b, n0, n1, n2, sel, D0p1, D1, D2, stream)
     if (w <= 4)
         TF_LAUNCH(4);
     else if (w <= 8)
@@ -144,17 +121,17 @@ int dispatch(const void* M, const void* det_always, const int* occ_b, const int*
 
 extern "C" int tf_det_fill(int dtype, const void* M, const void* det_always, const int* occ_b,
                            const int* occ_k, const int* pr, const int* pc, const int* tab0,
-                           const int* tab1, const int* tab2, void* out, int G, int m, int w,
-                           int R_b, int K_b, int P_b, int n0, int n1, int n2, int sel, int D0p1,
-                           int D1, int D2, void* stream) {
+                           const int* tab1, const int* tab2, const int* slot, void* out, int G,
+                           int m, int w, int R_b, int K_b, int P_b, int n0, int n1, int n2,
+                           int sel, int D0p1, int D1, int D2, void* stream) {
     if (G == 0 || P_b == 0) return (int)cudaSuccess;
     if (dtype == TF_F64)
-        return dispatch<double>(M, det_always, occ_b, occ_k, pr, pc, tab0, tab1, tab2, out, G, m,
-                                w, R_b, K_b, P_b, n0, n1, n2, sel, D0p1, D1, D2,
+        return dispatch<double>(M, det_always, occ_b, occ_k, pr, pc, tab0, tab1, tab2, slot, out,
+                                G, m, w, R_b, K_b, P_b, n0, n1, n2, sel, D0p1, D1, D2,
                                 (cudaStream_t)stream);
     if (dtype == TF_C128)
-        return dispatch<c128>(M, det_always, occ_b, occ_k, pr, pc, tab0, tab1, tab2, out, G, m,
-                              w, R_b, K_b, P_b, n0, n1, n2, sel, D0p1, D1, D2,
+        return dispatch<c128>(M, det_always, occ_b, occ_k, pr, pc, tab0, tab1, tab2, slot, out,
+                              G, m, w, R_b, K_b, P_b, n0, n1, n2, sel, D0p1, D1, D2,
                               (cudaStream_t)stream);
     return (int)cudaErrorInvalidValue;
 }

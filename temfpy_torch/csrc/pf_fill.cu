@@ -33,9 +33,10 @@
 // held by one thread spills to local memory (the det_fill kernel loses most
 // of its gain that way at w = 32).  The design: one warp per pair, the
 // matrix in the warp's slice of shared memory (w x w c128, 4 KB at w = 16),
-// the pivot search as a warp argmax over shuffles, each step's row/column
-// swap and trailing update spread over the 32 lanes, __syncwarp between
-// phases and no block-wide synchronisation; N is read from global memory
+// the elimination in common.cuh:warp_parlett_reid (the pivot search as a
+// warp argmax over shuffles, each step's row/column swap and trailing
+// update spread over the 32 lanes, __syncwarp between phases), no
+// block-wide synchronisation; N is read from global memory
 // (a few KB per site, cached).  The width is a template bound (8, 16, 32).
 // No allocation, no host sync: the kernel runs on the caller's stream.
 
@@ -44,7 +45,6 @@
 namespace {
 
 constexpr int kWarps = 4;  // pairs per block
-constexpr unsigned kFull = 0xffffffffu;
 
 template <int W>
 __global__ void pf_fill_kernel(const c128* __restrict__ N, const double* __restrict__ norm,
@@ -87,48 +87,7 @@ __global__ void pf_fill_kernel(const c128* __restrict__ N, const double* __restr
             A[s * W + t] = Ng[(long long)ix[s] * m + ix[t]];
         }
         __syncwarp();
-        for (int k = 0; k < tot; k += 2) {
-            // pivot: largest |A[j, k]| over j in (k, tot), first on ties
-            const int j = k + 1 + lane;
-            double best = (j < tot) ? Num<c128>::mag(A[j * W + k]) : -1.0;
-            int bj = j;
-            for (int off = 16; off > 0; off >>= 1) {
-                const double v2 = __shfl_down_sync(kFull, best, off);
-                const int j2 = __shfl_down_sync(kFull, bj, off);
-                if (v2 > best || (v2 == best && j2 < bj)) {
-                    best = v2;
-                    bj = j2;
-                }
-            }
-            const int kp = __shfl_sync(kFull, bj, 0);
-            if (kp != k + 1) {
-                for (int t = lane; t < tot; t += 32) {
-                    const c128 tmp = A[(k + 1) * W + t];
-                    A[(k + 1) * W + t] = A[kp * W + t];
-                    A[kp * W + t] = tmp;
-                }
-                __syncwarp();
-                for (int t = lane; t < tot; t += 32) {
-                    const c128 tmp = A[t * W + k + 1];
-                    A[t * W + k + 1] = A[t * W + kp];
-                    A[t * W + kp] = tmp;
-                }
-                __syncwarp();
-                pf = -pf;
-            }
-            const c128 akk1 = A[k * W + k + 1];
-            pf = pf * akk1;
-            if (Num<c128>::is_zero(akk1)) break;  // the same value in every lane
-            const int n = tot - k - 2;
-            for (int i = k + 2 + lane; i < tot; i += 32) u[i] = A[k * W + i] / akk1;
-            __syncwarp();
-            for (int e = lane; e < n * n; e += 32) {
-                const int i = k + 2 + e / n, jj = k + 2 + e % n;
-                A[i * W + jj] =
-                    A[i * W + jj] + (u[i] * A[jj * W + k + 1] - A[i * W + k + 1] * u[jj]);
-            }
-            __syncwarp();
-        }
+        pf = warp_parlett_reid<c128, W>(A, u, tot, lane);
     }
     if (lane == 0) {
         const int i0 = (sel & 1) ? c : r;

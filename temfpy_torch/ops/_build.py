@@ -41,9 +41,9 @@ existing library or not built)."""
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
 _SIGNATURES = {
-    # dtype, M, det_always, occ_b, occ_k, pr, pc, tab0, tab1, tab2, out,
-    # G, m, w, R_b, K_b, P_b, n0, n1, n2, sel, D0p1, D1, D2, stream
-    "tf_det_fill": [_i] + [_vp] * 10 + [_i] * 13 + [_vp],
+    # dtype, M, det_always, occ_b, occ_k, pr, pc, tab0, tab1, tab2, slot,
+    # out, G, m, w, R_b, K_b, P_b, n0, n1, n2, sel, D0p1, D1, D2, stream
+    "tf_det_fill": [_i] + [_vp] * 11 + [_i] * 13 + [_vp],
     # dtype, frames_b, frames_k, G, L, Wb, Wk, colb, kindb, rowb, signb,
     # colk, kindk, rowk, signk, mb, kb, right_mode, det_out, S_out, stream
     "tf_site_overlap_schur": [_i, _vp, _vp] + [_i] * 4 + [_vp] * 8 + [_i] * 3
@@ -60,6 +60,16 @@ _SIGNATURES = {
     # N, norm, pos_b, pos_k, cnt_b, cnt_k, pr, pc, tab0, tab1, tab2, out,
     # G, m, width, wt, R_b, K_b, P_b, n0, n1, n2, sel, D0p1, D1, D2, stream
     "tf_pf_fill": [_vp] * 12 + [_i] * 14 + [_vp],
+    # dtype, M, scale, idx_b, idx_k, out, G, m, w, nb, nk, cross, stream
+    "tf_det_rows": [_i] + [_vp] * 5 + [_i] * 6 + [_vp],
+    # dtype, M, r0, c0, D0, G, P, T2, T3, gmax, tmax, E, m, w, stream
+    "tf_swap_tables": [_i] + [_vp] * 10 + [_i] * 3 + [_vp],
+    # dtype, M, det_always, D0, G, P, T2, T3, Rin, Rout, Rpos, sgr, Cin, Cout,
+    # Cpos, sgc, pr, pc, tab0, tab1, tab2, slot, out, U, m, w, R_b, K_b, Wr,
+    # Wc, P_b, s_b, n0, n1, n2, sel, D0p1, D1, D2, scatter, stream
+    "tf_swap_fill": [_i] + [_vp] * 22 + [_i] * 17 + [_vp],
+    # dtype, N, bra_idx, ket_idx, out, m, nb, nk, kb, kk, stream
+    "tf_pf_gather": [_i] + [_vp] * 4 + [_i] * 5 + [_vp],
 }
 
 

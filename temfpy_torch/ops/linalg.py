@@ -10,13 +10,24 @@ Counterpart of the main-path subset of :mod:`temfpy_tpu.ops.linalg`:
   Gauss-Jordan with partial pivoting, written out step by step.  They are
   the plain twins of the CUDA kernels in :mod:`temfpy_torch.ops.kernels`
   and follow the JAX package's batch-first bodies (``_lu_det_body``, the
-  explicit branch of ``gauss_solve_det``) pivot for pivot.
+  explicit branch of ``gauss_solve_det``) pivot for pivot;
+- :func:`batched_det_pairs` and :func:`batched_det_gather`: determinants of
+  index-row submatrices, paired or all-pairs (on a CUDA tensor the
+  ``det_rows`` kernel), and :func:`scatter_padded`;
+- the rank-update determinants: :func:`det_swap_tables` (a class base's
+  factorization and gather tables), :func:`det_swaps_body` (the bordered
+  determinants of the near-base pairs) and the host sign helper
+  :func:`perm_parity_rows`; the first two are the arithmetic of the
+  ``swap_tables`` and ``swap_fill`` kernels' twins.
 
 Not ported (TPU workarounds): the host-eigh routing (``_eigh_blocks_host``,
 ``_use_host_eigh``, ``_back_like``), the batch-last layouts with implicit
 pivoting (``_lu_det_batch_last``, ``_gauss_solve_det_implicit``), the
 one-hot MXU selection (``_onehot_select``, ``_split_f32``) and the mesh
-branch of ``eigh_blocks``.
+branch of ``eigh_blocks``; the per-class vmaps (``det_swap_tables_group``,
+``_det_swaps_group``, ``_det_check_group``, ``_swap_probe_group``: each
+kernel takes a whole group) and ``_bmm_small`` (an emulated-float64
+matmul).
 """
 
 from __future__ import annotations
@@ -202,6 +213,189 @@ def gather_submatrices(M: torch.Tensor, idx_b: torch.Tensor, idx_k: torch.Tensor
     if cross:
         return M[idx_b[:, None, :, None], idx_k[None, :, None, :]]
     return M[idx_b[:, :, None], idx_k[:, None, :]]
+
+
+def scatter_padded(vals: torch.Tensor, shape, indices, n_real: int, dtype=None):
+    """Scatters a padded value batch into a dense tensor
+    (``temfpy_tpu.ops.linalg.scatter_padded``).
+
+    ``vals`` (P_b,) has P_b >= ``n_real`` entries; those past ``n_real`` go
+    to a trash row appended on axis 0 and cut off.  ``indices`` holds one
+    host int array of length ``n_real`` per axis of ``shape``."""
+    P_b = vals.shape[0]
+    padded = []
+    for ax, ix in enumerate(indices):
+        full = np.full(P_b, shape[0] if ax == 0 else 0, np.int64)
+        full[:n_real] = ix
+        padded.append(torch.as_tensor(full, device=vals.device))
+    T = torch.zeros((shape[0] + 1,) + tuple(shape[1:]), dtype=dtype or vals.dtype,
+                    device=vals.device)
+    T[tuple(padded)] = vals.to(T.dtype)
+    return T[: shape[0]]
+
+
+def _as_index(idx, device) -> torch.Tensor:
+    """Index rows (numpy, nested lists or a tensor) as a contiguous int32
+    tensor on ``device``."""
+    return torch.as_tensor(np.asarray(idx) if not torch.is_tensor(idx) else idx,
+                           device=device).to(torch.int32).contiguous()
+
+
+def batched_det_pairs(M: torch.Tensor, row_idx, col_idx, chunk: int | None = None):
+    """Determinants ``det(M_aug[row_idx[p]][:, col_idx[p]])`` for a flat list
+    of (row-list, col-list) pairs (``temfpy_tpu.ops.linalg.
+    batched_det_pairs``).
+
+    Index rows share a width k; a slot ``s`` holding the sentinel
+    ``M.shape[0] + s`` addresses the identity extension ``M_aug =
+    block_diag(M, I_k)``, so an all-sentinel row gives 1.  On a CUDA tensor
+    ``M`` this launches the ``det_rows`` kernel (one thread per
+    determinant, k <= 64), on a CPU tensor its twin; ``chunk`` bounds the
+    pairs per launch.  Returns (P,) values on M's device."""
+    from .kernels import det_rows
+
+    row_idx, col_idx = _as_index(row_idx, M.device), _as_index(col_idx, M.device)
+    if row_idx.shape != col_idx.shape:
+        raise ValueError(f"row and column index shapes differ: {tuple(row_idx.shape)}, "
+                         f"{tuple(col_idx.shape)}")
+    P, k = row_idx.shape
+    if k == 0:
+        return torch.ones(P, dtype=M.dtype, device=M.device)
+    M = M.contiguous()[None]
+    step = P if chunk is None or P <= chunk else chunk
+    outs = [det_rows(M, row_idx[None, i : i + step], col_idx[None, i : i + step])[0]
+            for i in range(0, P, max(step, 1))]
+    return torch.cat(outs) if outs else M.new_ones(0)
+
+
+def batched_det_gather(M: torch.Tensor, bra_idx, ket_idx, chunk: int | None = None):
+    """Determinants ``det(M_aug[bra_idx[i]][:, ket_idx[j]])`` for all pairs
+    (i, j) (``temfpy_tpu.ops.linalg.batched_det_gather``); sentinels as in
+    :func:`batched_det_pairs`, whose kernel (or twin) this launches in its
+    all-pairs form.  ``chunk`` bounds the bra rows per launch.  Returns
+    (nb, nk) values on M's device."""
+    from .kernels import det_rows
+
+    bra_idx, ket_idx = _as_index(bra_idx, M.device), _as_index(ket_idx, M.device)
+    k = bra_idx.shape[1]
+    if ket_idx.shape[1] != k:
+        raise ValueError("bra and ket index widths must match")
+    nb, nk = bra_idx.shape[0], ket_idx.shape[0]
+    if k == 0:
+        return torch.ones((nb, nk), dtype=M.dtype, device=M.device)
+    M = M.contiguous()[None]
+    step = nb if chunk is None or nb <= chunk else chunk
+    outs = [det_rows(M, bra_idx[None, i : i + step], ket_idx[None], cross=True)[0]
+            for i in range(0, nb, max(step, 1))]
+    return torch.cat(outs) if outs else M.new_ones((0, nk))
+
+
+# --------------------------------------------------------------------------
+# Rank-update determinants
+#
+# Within one excitation class every (bra, ket) pair selects a w-row/column
+# submatrix of the parent M that differs from a per-class BASE pair (R0, C0)
+# by a few swapped rows/columns.  With A = M[R0, C0], G = A^-1 and the tables
+# P = M[:, C0] G, T2 = G M[R0, :], T3 = P M[R0, :], every pair's determinant
+# is +-det(A) det(S), S an (a+b) x (a+b) matrix assembled from gathers:
+#
+#   S = [[ K,                U G V'' ],
+#        [ E_c^T G E_r,  I_b + E_c^T G V'' ]]
+#
+#   K            = I_a + (P[Rin] - P[Rout])[:, rpos]
+#   E_c^T G E_r  = G[cpos, rpos]
+#   E_c^T G V''  = T2[cpos, Cin] - T2[cpos, Cout] + G[cpos, rpos] @ D12
+#   U G V''      = (T3 diffs over {Rin, Rout} x {Cin, Cout}) + (K - I) @ D12
+#   D12          = M[Rin, Cin] - M[Rout, Cin] - M[Rin, Cout] + M[Rout, Cout]
+#
+# (temfpy_tpu/ops/linalg.py, the same derivation).  a/b are padded to shape
+# buckets by SELF-swaps (Rin = Rout), which leave det(S) unchanged.
+# --------------------------------------------------------------------------
+
+
+def det_swap_tables(M_aug: torch.Tensor, r0: torch.Tensor, c0: torch.Tensor):
+    """Per-class base factorization and gather tables
+    (``temfpy_tpu.ops.linalg.det_swap_tables``), batched over leading
+    entries: ``M_aug`` (E, m_aug, m_aug) identity-extended parents, ``r0`` /
+    ``c0`` (E, w) base row/column positions (sentinel-padded, so A =
+    block_diag(A_true, I)).  Unbatched 2-d / 1-d inputs are taken too.
+
+    Returns (D0 (E,), G (E, w, w), P (E, m_aug, w), T2 (E, w, m_aug),
+    T3 (E, m_aug, m_aug)), without the leading axis for unbatched input."""
+    single = M_aug.dim() == 2
+    if single:
+        M_aug, r0, c0 = M_aug[None], r0[None], c0[None]
+    E, m_aug, _ = M_aug.shape
+    w = r0.shape[-1]
+    r0, c0 = r0.long(), c0.long()
+    Mc = torch.gather(M_aug, 2, c0[:, None, :].expand(E, m_aug, w))  # (E, m_aug, w)
+    Mr = torch.gather(M_aug, 1, r0[:, :, None].expand(E, w, m_aug))  # (E, w, m_aug)
+    A = torch.gather(Mr, 2, c0[:, None, :].expand(E, w, w))
+    eye = torch.eye(w, dtype=M_aug.dtype, device=M_aug.device).expand(E, w, w)
+    D0, G = gauss_solve_det(A, eye)
+    P = Mc @ G
+    T2 = G @ Mr
+    T3 = P @ Mr
+    out = (D0, G, P, T2, T3)
+    return tuple(t[0] for t in out) if single else out
+
+
+def det_swaps_body(M_aug, G, P, T2, T3, D0, sign, rin, rout, rpos, cin, cout, cpos):
+    """Rank-update determinants of a batch of near-base pairs
+    (``temfpy_tpu.ops.linalg._det_swaps_body``): for pair p, its (a, a)
+    row-swap and (b, b) column-swap index rows ``rin``/``rout``/``rpos`` and
+    ``cin``/``cout``/``cpos`` (int tensors (P, a) and (P, b)), the class
+    tables of :func:`det_swap_tables` and the permutation ``sign`` (P,),
+    returns ``lu_det(S) * D0 * sign`` (P,) with S of
+    :func:`swap_bordered`."""
+    S = swap_bordered(M_aug, G, P, T2, T3, rin, rout, rpos, cin, cout, cpos)
+    return lu_det(S) * D0 * sign
+
+
+def swap_bordered(M_aug, G, P, T2, T3, rin, rout, rpos, cin, cout, cpos):
+    """The (P, a+b, a+b) bordered matrices S of :func:`det_swaps_body`,
+    assembled from gathers of M_aug and the class tables."""
+    a, b = rin.shape[1], cin.shape[1]
+    gs = gather_submatrices
+    eye_a = torch.eye(a, dtype=M_aug.dtype, device=M_aug.device)[None]
+    eye_b = torch.eye(b, dtype=M_aug.dtype, device=M_aug.device)[None]
+    K = eye_a + gs(P, rin, rpos) - gs(P, rout, rpos)  # (P, a, a)
+    Gcr = gs(G, cpos, rpos)  # (P, b, a)
+    D12 = (gs(M_aug, rin, cin) - gs(M_aug, rout, cin)
+           - gs(M_aug, rin, cout) + gs(M_aug, rout, cout))  # (P, a, b)
+    X = gs(T2, cpos, cin) - gs(T2, cpos, cout) + Gcr @ D12
+    Z = (gs(T3, rin, cin) - gs(T3, rout, cin) - gs(T3, rin, cout) + gs(T3, rout, cout)
+         ) + (K - eye_a) @ D12
+    return torch.cat([torch.cat([K, Z], dim=2), torch.cat([Gcr, eye_b + X], dim=2)], dim=1)
+
+
+def perm_parity_rows(base: np.ndarray, rpos: np.ndarray, rin: np.ndarray) -> np.ndarray:
+    """Host: parity signs of in-place row replacement against sorted order
+    (``temfpy_tpu.ops.linalg.perm_parity_rows``).
+
+    ``base`` is the sorted (w,) base position array; row r of ``rpos`` /
+    ``rin`` replaces base[rpos[r, j]] by rin[r, j] (self-swaps allowed).
+    Returns (n,) float signs."""
+    n = rin.shape[0]
+    signs = np.ones(n)
+    for r in range(n):
+        arr = base.copy()
+        arr[rpos[r]] = rin[r]
+        order = np.argsort(arr, kind="stable")
+        seen = np.zeros(len(arr), bool)
+        sign = 1
+        for i in range(len(arr)):
+            if seen[i]:
+                continue
+            j, clen = i, 0
+            while not seen[j]:
+                seen[j] = True
+                j = order[j]
+                clen += 1
+            if clen % 2 == 0:
+                sign = -sign
+        signs[r] = sign
+    return signs
 
 
 # --------------------------------------------------------------------------

@@ -18,7 +18,9 @@ Not ported (TPU workarounds): the split-plane (re, im) forms
 ``_pad_split_planes``, ``_pf_pairs_split_impl``,
 ``batched_pfaffian_pairs_split`` and the packed ``_pf_pairs_packed_split*``
 family; the batch-last layout ``_pfaffian_batch_last`` (same Pfaffians,
-implicit pivoting).  Not yet ported: ``batched_pfaffian_gather``.
+implicit pivoting).  :func:`batched_pfaffian_gather` (the all-pairs
+Pfaffians) launches the ``pf_gather`` kernel on a CUDA tensor and its twin
+(:func:`temfpy_torch.ops.kernels.pf_gather_plain`) on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -135,3 +137,33 @@ def batched_pfaffian_pairs(N: torch.Tensor, idx: torch.Tensor, pad_slots: int,
     out = [batched_pfaffian(N_aug[idx[i : i + step, :, None], idx[i : i + step, None, :]])
            for i in range(0, P, step)]
     return torch.cat(out) if out else N.new_ones(0)
+
+
+def batched_pfaffian_gather(N: torch.Tensor, bra_idx, ket_idx, pad_slots: int,
+                            chunk: int | None = None) -> torch.Tensor:
+    """Pfaffians ``Pf(N_aug[ix, ix])`` with ``ix = concat(ket_idx[j],
+    bra_idx[i])`` for all pairs (i, j), the Bogoliubov-excitation overlaps
+    (reference pfaffian.py:1429-1479;
+    ``temfpy_tpu.ops.pfaffian.batched_pfaffian_gather``).
+
+    Index slots holding values >= ``N.shape[0]`` address the symplectic
+    extension by ``pad_slots`` rows (:func:`symplectic_pad`); every pair must
+    use its padding slots as a contiguous, even-aligned run (callers pad
+    only the tail of ``bra_idx``).  On a CUDA tensor ``N`` this launches the
+    ``pf_gather`` kernel (one warp per pair, total width <= 32), on a CPU
+    tensor its twin; ``chunk`` bounds the bra rows per launch.  Returns
+    (nb, nk) on N's device."""
+    from .kernels import pf_gather
+    from .linalg import _as_index
+
+    bra_idx, ket_idx = _as_index(bra_idx, N.device), _as_index(ket_idx, N.device)
+    k = bra_idx.shape[1] + ket_idx.shape[1]
+    nb, nk = bra_idx.shape[0], ket_idx.shape[0]
+    if k == 0:
+        return torch.ones((nb, nk), dtype=N.dtype, device=N.device)
+    if k % 2:
+        raise ValueError("total excitation count per pair must be even")
+    step = nb if chunk is None or nb <= chunk else chunk
+    outs = [pf_gather(N.contiguous(), bra_idx[i : i + step], ket_idx, pad_slots)
+            for i in range(0, nb, max(step, 1))]
+    return torch.cat(outs) if outs else N.new_ones((0, nk))

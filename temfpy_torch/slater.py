@@ -17,12 +17,23 @@ package's docstrings do.  The path:
    Schmidt states on the host (:class:`SchmidtVectors`).  The centre cut
    always takes the exact frontend.
 3. Per site, host planning (:func:`_plan_site`,
-   :meth:`MPSTensorData._plan_fill`, numpy) and exactly two device entry
-   points, each launched once per group of sites sharing a shape bucket:
-   :func:`temfpy_torch.ops.kernels.site_overlap_schur` (orbital overlap +
-   Schur complement of the always-occupied block) and
+   :meth:`MPSTensorData._plan_fill`, numpy) and the device entry points,
+   each launched once per group of sites (or classes) sharing a shape
+   bucket: :func:`temfpy_torch.ops.kernels.site_overlap_schur` (orbital
+   overlap + Schur complement of the always-occupied block) and
    :func:`temfpy_torch.ops.kernels.det_fill` (the determinant of every
    charge-matching (bra, ket) pair, scattered into the dense site tensor).
+   Where :func:`_use_det_updates` says so (by default on the CPU, not on
+   the card), the near-base pairs of large excitation classes take the
+   rank-update path instead: per class a base factorization
+   (:func:`temfpy_torch.ops.kernels.swap_tables`), a checked-subset probe
+   (:func:`temfpy_torch.ops.kernels.swap_fill` in values mode against
+   :func:`temfpy_torch.ops.kernels.det_rows`), and the bordered
+   determinants of the whole class (``swap_fill`` in scatter mode); a class
+   that fails the pre-screen or the probe goes through ``det_fill``.  The
+   fills of a site write disjoint entries, so each writes them in place
+   into the site's slot of one zeroed buffer per shape bucket, where the
+   JAX package sums a partial tensor per plan.
 4. The tensors land in :class:`temfpy_torch.mps.MPS`.
 
 Every device array lives on the device of the correlation matrix: the
@@ -39,14 +50,26 @@ work); the ``_chi_shard_*`` helpers and the mesh branch of
 (``_compact_sweep_frames``: exact-frontend frames are full (L, L) eigh
 outputs); the stream lookahead thread;
 the small-problem CPU reroute; the pair-axis chunking that bounded the
-TPU's one-hot temporaries.  Not yet ported: the rank-update (swap)
-determinant path, the randomized frontend, and
-``C_to_iMPS``/``H_to_iMPS``.
+TPU's one-hot temporaries.  Of the rank-update path: ``_swap_collapse`` /
+``TEMFPY_TPU_SWAP_COLLAPSE`` and the fixed width-8 swap tables, single
+s_b = 8 bucket and site-level table rows it drives (they bounded the TPU's
+remote cold compiles; the port plans the tight per-class widths of the
+JAX package's CPU layout, which gives the same tensors), the ``GB = 8``
+chunk padding and the ``*_group`` vmaps of the grouped swap stages (each
+kernel takes a whole group), the 4x pair-batch grid (pair batches pad to
+powers of two, as the direct plans do) and the per-class dispatch
+``dispatch_fill``.  Not yet ported: the single-site API
+(``MPSTensorData.from_schmidt_vectors``, ``to_dense_tensor``,
+``dispatch_fill``; the iMPS slice needs it, and it runs only kernels the
+port has), the randomized frontend, and ``C_to_iMPS``/``H_to_iMPS``.
 """
 
 from __future__ import annotations
 
 import logging
+import os
+import threading
+from collections import Counter
 from dataclasses import dataclass
 from typing import Literal, Type
 
@@ -58,7 +81,7 @@ from .config import DIAG_TOL as _DIAG_TOL
 from .config import resolve_device
 from .mps import MPS, FermionSite
 from .ops.fw import fw_frames, use_fw
-from .ops.kernels import det_fill, site_overlap_schur
+from .ops.kernels import det_fill, det_rows, site_overlap_schur, swap_fill, swap_tables
 from .ops.linalg import block_svd, eigh_blocks
 from .schmidt_utils import lowest_sums, to_stopping_condition
 from .testing import assert_allclose, check_schmidt_decomposition
@@ -594,6 +617,85 @@ def _unique_small_ints(x, n):
     return u, lut[x]
 
 
+_N_CHECK = 32
+"""Pairs per swap bucket checked against the direct determinants before
+the bucket's class commits to the rank-update path (the probe).  Only
+these strided pairs are verified, with the tolerance scaled by the
+largest |det| of the checked subset, so a base that is well-conditioned on
+them but marginal elsewhere can pass (as in the JAX package); the
+pre-screen and the probe bound the risk."""
+
+_SWAP_GMAX = 1e6
+"""Conditioning pre-screen of rank-update bases: a class whose base
+inverse G = A^-1, or one of whose tables P, T2, T3, has an entry above this
+skips the swap fill and goes through the direct path.  max|G| ~
+1/sigma_min caps the float64 error amplification of every swap entry at
+~1e-16 * _SWAP_GMAX = 1e-10, inside the probe's 1e-8 tolerance (the JAX
+package's screen).  The tables' bound is the port's addition: next to a
+nearly singular always block the sometimes matrix holds entries to ~1e13
+outside the base block, P and T3 reach ~1e14, and the bordered matrix S is
+their difference, so a few pairs the probe does not check lose all their
+digits (the pi-flux cylinder of tests/test_det_updates.py, with the port's
+eigensolver gauge: 2.6e-3 where the determinant is 1e-15)."""
+
+
+def _use_det_updates(device) -> bool:
+    """Whether the fill plans the rank-update (swap) path for a site whose
+    tensors live on ``device``.
+
+    ``TEMFPY_TORCH_DET_UPDATES``: "0" off, "1" on (unconditionally, as the
+    JAX package's "1"), "auto" (default) on for the CPU, where it replaces
+    each near-base pair's O(w^3) LU by an O((2 s_b)^3) one, and off on CUDA,
+    as the JAX package is off on accelerators: the swap machinery's per-class
+    tables, host planning and probe download buy fewer flops than the card
+    spends on them (the JAX package measured 87.9 s against 21.9 s direct
+    on the TPU).  Under "auto" the per-conversion stop rule
+    :func:`_swap_paying_off` also applies."""
+    mode = os.environ.get("TEMFPY_TORCH_DET_UPDATES", "auto")
+    if mode == "0":
+        return False
+    if mode == "1":
+        return True
+    return torch.device(device).type == "cpu" and _swap_paying_off()
+
+
+# Running swap-class statistics of the current conversion.  Highly
+# symmetric states (the Gutzwiller pi-flux ansatz) have degenerate Schmidt
+# spectra whose majority bases are singular, so most classes fall back to
+# the direct path and the swap work is overhead; once fallbacks dominate,
+# later sites of the same conversion stop planning swap classes.
+# Thread-local and reset per conversion.
+_swap_tls = threading.local()
+
+
+def _swap_stats() -> dict:
+    if not hasattr(_swap_tls, "stats"):
+        _reset_swap_stats()
+    return _swap_tls.stats
+
+
+def _reset_swap_stats():
+    # "wasted" counts swap fills of a class found bad afterwards, which the
+    # JAX package can dispatch before its cross-check resolves; here the
+    # probe decides before any swap fill, so it stays 0 (kept so that the
+    # two packages' statistics compare)
+    _swap_tls.stats = {"classes": 0, "fallbacks": 0, "wasted": 0}
+
+
+def _swap_paying_off() -> bool:
+    st = _swap_stats()
+    c, f = st["classes"], st["fallbacks"]
+    return not (c >= 8 and 2 * f > c)
+
+
+def _bucket_swaps(a):
+    """Shape bucket s_b in {1, 2, 4, 8} of swap counts ``a`` (an int or an
+    int array), 99 past 8: such a pair is cheaper through the direct
+    path."""
+    a = np.asarray(a)
+    return np.select([a <= 1, a <= 2, a <= 4, a <= 8], [1, 2, 4, 8], 99)
+
+
 @dataclass(frozen=True)
 class MPSTensorData:
     """Implicit description of one MPS tensor (or Schmidt-vector overlap
@@ -605,9 +707,13 @@ class MPSTensorData:
     "sometimes" orbitals of ``sometimes_matrix``.
 
     Only what :func:`build_site_tensors` runs is ported: the packed direct
-    plan and the slice to the true shape.  The single-site API
+    plan, the rank-update class plan, and the resolve (class fallbacks,
+    the slice to the true shape).  The single-site API
     (``from_schmidt_vectors``, ``to_dense_tensor``, ``dispatch_fill``) and
-    the unpacked plan (``_direct_arrays``, ``_scatter_ix``) are not.
+    the unpacked plan (``_direct_arrays``, ``_scatter_ix``) are not: a
+    failed rank-update class is recomputed through a packed direct plan
+    and ``det_fill``, the function of the JAX package's
+    ``_det_direct_vals_impl`` and ``scatter_vals_kernel``.
     """
 
     mode: str
@@ -624,9 +730,17 @@ class MPSTensorData:
 
     def _plan_fill(self):
         """Host planning of the tensor fill: returns (shape, q_l, q_r,
-        plans), one direct plan per determinant width bucket (pairs of
-        excitation class c only need c x c determinants; widths are padded
-        to 4 or to multiples of 8).  Plans scatter into disjoint entries."""
+        plans).
+
+        - kind "direct": one plan per determinant width bucket (pairs of
+          excitation class c only need c x c determinants; widths are
+          padded to 4 or to multiples of 8).
+        - kind "swap_class": where :func:`_use_det_updates` says so, a
+          class with c > 4 and at least 64 pairs takes the rank-update
+          path (:meth:`_plan_swap_class`); its pairs too far from the
+          class base go back to the direct width buckets.
+
+        Plans scatter into disjoint entries."""
         nb = len(self.q_bra)
         nk = len(self.q_ket)
         if self.mode == "left" or not self.physical_leg:
@@ -640,8 +754,10 @@ class MPSTensorData:
             shape = (nb, 2, nk) if self.mode == "left" else (nk, 2, nb)
         else:
             shape = (nb, nk)
+        use_swap = _use_det_updates(self.sometimes_matrix.device)
 
         direct: dict[int, tuple[list, list]] = {}
+        plans = []
         for c in np.unique(cnt_bra):
             rows = np.nonzero(cnt_bra == c)[0]
             cols = np.nonzero(cnt_ket == c)[0]
@@ -649,15 +765,147 @@ class MPSTensorData:
                 continue
             c = int(c)
             w_b = 4 if c <= 4 else -(-c // 8) * 8
-            r_l, c_l = direct.setdefault(w_b, ([], []))
-            r_l.append(np.repeat(rows, cols.size))
-            c_l.append(np.tile(cols, rows.size))
-        plans = [
+            if use_swap and c > 4 and rows.size * cols.size >= 64:
+                swap_plan, far = self._plan_swap_class(c, w_b, rows, cols, m, shape)
+                if swap_plan is not None:
+                    plans.append(swap_plan)
+            else:
+                far = (np.repeat(rows, cols.size), np.tile(cols, rows.size))
+            if far is not None:
+                r_l, c_l = direct.setdefault(w_b, ([], []))
+                r_l.append(far[0])
+                c_l.append(far[1])
+        plans += [
             self._direct_plan_packed(np.concatenate(direct[w_b][0]),
                                      np.concatenate(direct[w_b][1]), w_b, m, shape)
             for w_b in sorted(direct)
         ]
         return shape, q_l, q_r, plans
+
+    def _scatter_tables(self, rows, cols, n_r, n_k, shape):
+        """Scatter value tables over the plan-local bra ids (``rows``, padded
+        to ``n_r``) and ket ids (``cols``, padded to ``n_k``) with their
+        ``spec``: the bond and physical index of each id; pad ids route to
+        the trash slot at the bucketed leading dimension."""
+        sb0 = _bucket_shape(shape)[0]
+        beta = np.zeros(n_r, np.int32)
+        beta[: len(rows)] = self.bra_beta[rows]
+        col = np.zeros(n_k, np.int32)
+        col[: len(cols)] = cols
+        if not self.physical_leg:
+            beta[len(rows):] = sb0
+            return "rc", (beta, col, np.zeros(1, np.int32))
+        phys = np.zeros(n_r, np.int32)
+        phys[: len(rows)] = self.bra_phys[rows]
+        if self.mode == "left":
+            beta[len(rows):] = sb0
+            return "rrc", (beta, phys, col)
+        col[len(cols):] = sb0
+        return "crr", (col, phys, beta)
+
+    def _plan_swap_class(self, c, w_b, rows, cols, m, shape):
+        """Rank-update plan of one excitation class
+        (``temfpy_tpu/slater.py:MPSTensorData._plan_swap_class``, its CPU
+        layout: tight per-class widths).  Returns (plan or None, far pairs
+        (rows, cols) or None).
+
+        The base is the class's common majority: the c positions most often
+        occupied over the bra and the ket rows together (bra and ket modes
+        of consecutive cuts are aligned, so the base overlap is near
+        diagonal).  Each side's rows become swap arrays of width W =
+        min(8, c): the base positions the row lost, in ascending order,
+        then self-swaps at kept base positions, with the permutation sign of
+        the in-place replacement.  A pair's bucket is s_b = bucket(max(a_row,
+        b_col)) in {1, 2, 4, 8} up to W; farther pairs go direct.  Each
+        bucket is a sub-plan with (P_b,) pair ids into per-side tables that
+        end in a self-swap pad row, scatter tables, and ``_N_CHECK`` strided
+        checked pairs with their direct index rows (the probe)."""
+        sets_b = self.sets_bra[rows]
+        sets_k = self.sets_ket[cols]
+        freq = (sets_b.sum(axis=0) / max(len(sets_b), 1)
+                + sets_k.sum(axis=0) / max(len(sets_k), 1))
+        base = np.sort(np.argsort(freq)[::-1][:c])
+        base_mask = np.zeros(m, bool)
+        base_mask[base] = True
+        W = min(8, c)
+
+        def side_arrays(sets):
+            n = len(sets)
+            out_mask = ~sets[:, base]  # (n, c): base positions the row lost
+            in_mask = sets & ~base_mask  # (n, m): positions gained
+            a_real = in_mask.sum(axis=1)
+            locs = np.argsort(~out_mask, axis=1, kind="stable")[:, :W]
+            rpos = locs.astype(np.int32)
+            rout = base[locs].astype(np.int32)
+            ins = np.argsort(~in_mask, axis=1, kind="stable")[:, :W]
+            slot = np.arange(W)[None, :]
+            rin = np.where(slot < a_real[:, None], ins, rout).astype(np.int32)
+            arr = np.broadcast_to(base, (n, c)).copy()
+            np.put_along_axis(arr, locs, rin, axis=1)
+            inv = np.sum((arr[:, :, None] > arr[:, None, :])
+                         & (np.arange(c)[:, None] < np.arange(c)[None, :]), axis=(1, 2))
+            sign = np.where(inv % 2 == 1, -1.0, 1.0)
+            return a_real <= W, a_real, rin, rout, rpos, sign
+
+        ok_r, a_r, rin_r, rout_r, rpos_r, sign_r = side_arrays(sets_b)
+        ok_c, a_c, rin_c, rout_c, rpos_c, sign_c = side_arrays(sets_k)
+        ab_r = np.where(ok_r, _bucket_swaps(a_r), 99)
+        ab_c = np.where(ok_c, _bucket_swaps(a_c), 99)
+        sq = np.maximum(ab_r[:, None], ab_c[None, :])  # (R, C)
+        sq = np.where(sq > W, 99, sq)
+        far = None
+        if (sq >= 99).any():
+            fr, fc = np.nonzero(sq >= 99)
+            far = (rows[fr], cols[fc])
+
+        def side_tables(rin_s, rout_s, rpos_s, sign_s):
+            n = len(rin_s)
+            n_b = _pow2(n + 1, 32)
+            Rin = np.broadcast_to(base[:W].astype(np.int32), (n_b, W)).copy()
+            Rout = Rin.copy()
+            Rpos = np.broadcast_to(np.arange(W, dtype=np.int32), (n_b, W)).copy()
+            sg = np.ones(n_b)
+            Rin[:n], Rout[:n], Rpos[:n], sg[:n] = rin_s, rout_s, rpos_s, sign_s
+            return Rin, Rout, Rpos, sg, n_b
+
+        Rin_t, Rout_t, Rpos_t, sgr_t, R_b = side_tables(rin_r, rout_r, rpos_r, sign_r)
+        Cin_t, Cout_t, Cpos_t, sgc_t, K_b = side_tables(rin_c, rout_c, rpos_c, sign_c)
+        spec, tabs = self._scatter_tables(rows, cols, R_b, K_b, shape)
+
+        # pair-axis cap of the JAX package's plan (same sub-plans, same
+        # checked subsets)
+        per_pair = W * (w_b * 4 + 128 * 8)
+        P_cap = 1024
+        while P_cap * 4 <= int(1.5e8 / max(per_pair, 1)) and P_cap < 262144:
+            P_cap *= 4
+        sub_plans = []
+        for s_b in np.unique(sq[sq < 99]):
+            ri_all, ci_all = np.nonzero(sq == s_b)
+            for p0 in range(0, len(ri_all), P_cap):
+                ri = ri_all[p0 : p0 + P_cap]
+                ci = ci_all[p0 : p0 + P_cap]
+                P = len(ri)
+                P_b = _pow2(P, 256)
+                pr = np.full(P_b, R_b - 1, np.int32)
+                pr[:P] = ri
+                pc = np.full(P_b, K_b - 1, np.int32)
+                pc[:P] = ci
+                chk = np.linspace(0, P - 1, _N_CHECK).astype(np.int32)
+                g_rows, g_cols = rows[ri], cols[ci]
+                sub_plans.append({
+                    "s_b": int(s_b), "pr": pr, "pc": pc,
+                    "Rin": Rin_t, "Rout": Rout_t, "Rpos": Rpos_t, "sgr": sgr_t,
+                    "Cin": Cin_t, "Cout": Cout_t, "Cpos": Cpos_t, "sgc": sgc_t,
+                    "tabs": tabs, "spec": spec, "rows": g_rows, "cols": g_cols,
+                    "check_sel": chk,
+                    "check_idx_b": _occupation_indices(self.sets_bra[g_rows[chk]], w_b, m)[0],
+                    "check_idx_k": _occupation_indices(self.sets_ket[g_cols[chk]], w_b, m)[0],
+                })
+        if not sub_plans:
+            return None, far
+        r0 = np.concatenate([base, m + np.arange(w_b - c)]).astype(np.int32)
+        return {"kind": "swap_class", "w_b": w_b, "r0": r0, "c0": r0.copy(),
+                "sub": sub_plans, "m": m}, far
 
     def _direct_plan_packed(self, rows, cols, w_b, m, shape):
         """One direct fill plan: per-unique-bond occupation tables
@@ -684,35 +932,35 @@ class MPSTensorData:
         pc = np.full(P_b, K_b - 1, np.int32)
         pc[:P] = inv_c
 
-        sb0 = _bucket_shape(shape)[0]
-        beta = np.zeros(R_b, np.int32)
-        beta[: len(ub)] = self.bra_beta[ub]
-        col = np.zeros(K_b, np.int32)
-        col[: len(uk)] = uk
-        dummy = np.zeros(1, np.int32)
-        if not self.physical_leg:
-            beta[len(ub):] = sb0  # trash routing on the leading axis
-            spec, tabs = "rc", (beta, col, dummy)
-        elif self.mode == "left":
-            phys = np.zeros(R_b, np.int32)
-            phys[: len(ub)] = self.bra_phys[ub]
-            beta[len(ub):] = sb0
-            spec, tabs = "rrc", (beta, phys, col)
-        else:
-            phys = np.zeros(R_b, np.int32)
-            phys[: len(ub)] = self.bra_phys[ub]
-            col[len(uk):] = sb0
-            spec, tabs = "crr", (col, phys, beta)
+        spec, tabs = self._scatter_tables(ub, uk, R_b, K_b, shape)
         return {"kind": "direct", "occ_b": occ_b, "occ_k": occ_k, "pr": pr, "pc": pc,
                 "tabs": tabs, "spec": spec}
 
-    def resolve_fill(self, shape, T):
-        """The summed bucketed fill ``T`` sliced to the true shape (zeros
-        where ``T`` is None: no charge-matching pair)."""
-        if T is None:
-            return torch.zeros(shape, dtype=self.sometimes_matrix.dtype,
-                               device=self.sometimes_matrix.device)
-        return T[tuple(slice(0, d) for d in shape)]
+    def resolve_fill(self, shape, buf, slot, classes=()):
+        """The site tensor from slot ``slot`` of the bucketed buffer ``buf``
+        (:func:`temfpy_torch.ops.kernels.fill_buffer`), into which the
+        direct fill and the rank-update classes that passed have written
+        their disjoint entries, and this site's class entries ``classes``.
+
+        A class entry is ``forced`` where the pre-screen or the probe turned
+        it away, before any swap fill (the probe held the checked subset at
+        the 1e-8 tolerance); its pairs are then recomputed through a packed
+        direct plan and ``det_fill``, into the same slot.  The conversion's
+        swap statistics count classes and fallbacks.  Returns the tensor
+        sliced to the true shape."""
+        st = _swap_stats()
+        for ce in classes:
+            st["classes"] += 1
+            if not ce["forced"]:
+                continue
+            st["fallbacks"] += 1
+            plan = ce["plan"]
+            fr = np.concatenate([sub["rows"] for sub in plan["sub"]])
+            fc = np.concatenate([sub["cols"] for sub in plan["sub"]])
+            dplan = self._direct_plan_packed(fr, fc, plan["w_b"], plan["m"], shape)
+            _fill_group([self.sometimes_matrix], [self.det_always], [dplan],
+                        _bucket_shape(shape), buf, [slot])
+        return buf[slot][tuple(slice(0, d) for d in shape)]
 
 
 def _plan_site(Schmidt_bra: SchmidtVectors, Schmidt_ket: SchmidtVectors, mode: str):
@@ -892,9 +1140,10 @@ def _overlap_group(plans):
                               mode=plans[0]["fields"]["mode"])
 
 
-def _fill_group(Ms, dets, plans, shape_b):
+def _fill_group(Ms, dets, plans, shape_b, buf, slots):
     """One ``det_fill`` launch for fill plans sharing (bucketed shape, P_b,
-    table shapes, spec, sometimes shape); returns (G, *shape_b)."""
+    table shapes, spec, sometimes shape), each writing into its site's slot
+    ``slots[g]`` of the bucketed buffer ``buf`` in place."""
     dev = Ms[0].device
 
     def up(key):
@@ -902,8 +1151,8 @@ def _fill_group(Ms, dets, plans, shape_b):
 
     tabs = tuple(torch.as_tensor(np.stack([p["tabs"][t] for p in plans]), device=dev)
                  for t in range(3))
-    return det_fill(torch.stack(Ms), torch.stack(dets), up("occ_b"), up("occ_k"),
-                    up("pr"), up("pc"), tabs, spec=plans[0]["spec"], shape=shape_b)
+    det_fill(torch.stack(Ms), torch.stack(dets), up("occ_b"), up("occ_k"), up("pr"), up("pc"),
+             tabs, spec=plans[0]["spec"], shape=shape_b, out=buf, slot=slots)
 
 
 def build_site_tensors(pairs):
@@ -915,6 +1164,8 @@ def build_site_tensors(pairs):
     Returns [(T, q_l, q_r, qtotal)] aligned with ``pairs``.
     """
     n = len(pairs)
+    if not n:
+        return []
     with profiling.stage("fill/plan"):
         plans = [_plan_site(b, k, m) for (b, k, m) in pairs]
 
@@ -937,26 +1188,159 @@ def build_site_tensors(pairs):
                            **plans[i]["fields"]) for i in range(n)]
     with profiling.stage("fill/plan_fill"):
         fill_plans = [d._plan_fill() for d in datas]
+    # one zeroed buffer per bucketed shape holds its sites' tensors, a slot
+    # each; every fill writes its site's (disjoint) entries there in place
+    slot_of, n_of = [], Counter()
+    for shape, *_ in fill_plans:
+        slot_of.append(n_of[_bucket_shape(shape)])
+        n_of[_bucket_shape(shape)] += 1
+    som = datas[0].sometimes_matrix
+    bufs = {sb: torch.zeros((k, sb[0] + 1) + sb[1:], dtype=som.dtype, device=som.device)
+            for sb, k in n_of.items()}
     fill_groups: dict = {}
     for i, (shape, _ql, _qr, fplans) in enumerate(fill_plans):
         for plan in fplans:
+            if plan["kind"] != "direct":
+                continue
             key = (_bucket_shape(shape), plan["pr"].shape[0], plan["occ_b"].shape,
                    plan["occ_k"].shape, plan["spec"], tuple(datas[i].sometimes_matrix.shape))
             fill_groups.setdefault(key, []).append((i, plan))
-    acc: dict = {}
     with profiling.stage("fill/det_groups"):
         for key, entries in fill_groups.items():
-            T_s = _fill_group([datas[i].sometimes_matrix for i, _ in entries],
-                              [datas[i].det_always for i, _ in entries],
-                              [p for _, p in entries], key[0])
-            for T, (i, _p) in zip(torch.unbind(T_s), entries):
-                acc[i] = T if i not in acc else acc[i] + T
+            _fill_group([datas[i].sometimes_matrix for i, _ in entries],
+                        [datas[i].det_always for i, _ in entries], [p for _, p in entries],
+                        key[0], bufs[key[0]], [slot_of[i] for i, _ in entries])
 
+    # ---- stage 3: rank-update classes (kernels K6a, K6b, K5) ----
+    site_classes = _swap_stages(datas, fill_plans, bufs, slot_of)
     with profiling.stage("fill/resolve"):
         out = []
         for i, (shape, q_l, q_r, _plans) in enumerate(fill_plans):
-            out.append((datas[i].resolve_fill(shape, acc.get(i)), q_l, q_r, datas[i].qtotal))
+            out.append((datas[i].resolve_fill(shape, bufs[_bucket_shape(shape)], slot_of[i],
+                                              site_classes.get(i, ())),
+                        q_l, q_r, datas[i].qtotal))
     return out
+
+
+def _probe_ok(pairs) -> bool:
+    """The probe's verdict on one class from its sub-plans' checked values,
+    a list of (swap values, direct values) host arrays: every swap value
+    within 1e-8 x the class's largest checked |det| + 1e-8 |det| of its
+    direct value (``temfpy_tpu/slater.py``'s cross-check tolerance)."""
+    scale = max([1e-300] + [float(np.abs(dr).max()) for _sw, dr in pairs])
+    return all(np.all(np.abs(sw - dr) <= 1e-8 * scale + 1e-8 * np.abs(dr)) for sw, dr in pairs)
+
+
+def _swap_units(datas, units, dev):
+    """The stacked arguments of ``swap_fill`` for a group of (class entry,
+    sub-plan) units, up to the pair ids: the sites' sometimes matrices and
+    det_always, the classes' tables and the per-side swap tables."""
+    def host(name):
+        return torch.as_tensor(np.stack([sub[name] for _, sub in units]), device=dev)
+
+    return (torch.stack([datas[e["i"]].sometimes_matrix for e, _ in units]),
+            torch.stack([datas[e["i"]].det_always for e, _ in units]),
+            *(torch.stack([e["tables"][k] for e, _ in units]) for k in range(5)),
+            *(host(n) for n in ("Rin", "Rout", "Rpos", "sgr", "Cin", "Cout", "Cpos", "sgc")))
+
+
+def _swap_stages(datas, fill_plans, bufs, slot_of):
+    """The grouped rank-update stages of :func:`build_site_tensors`
+    (``temfpy_tpu/slater.py:build_site_tensors``, its swap half).
+
+    - ``fill/swap_tables``: one ``swap_tables`` launch per (sometimes shape,
+      w_b) group of (site, class) entries; then the pre-screen (|D0| < 1e-12,
+      or max|G| or the largest table entry > ``_SWAP_GMAX``), with one
+      download for all entries.
+    - ``fill/swap_probe``: for every sub-plan of a surviving class, the swap
+      values (``swap_fill``, values mode) and the direct determinants
+      (``det_rows``) of its ``_N_CHECK`` checked pairs, one launch of each
+      per shape group and one download; a class whose subset parts by more
+      than 1e-8 x its largest checked |det| + 1e-8 |det| is forced direct.
+    - ``fill/swap_dets``: the full swap fill (``swap_fill``, scatter mode)
+      of the classes that passed, one launch per shape group, into site
+      i's slot ``slot_of[i]`` of the buffer ``bufs`` holds for its bucketed
+      shape.
+
+    Returns {site: [class entry]}, each entry with its ``plan`` and
+    ``forced`` flag, for :meth:`MPSTensorData.resolve_fill`."""
+    entries = [{"i": i, "plan": plan, "forced": False}
+               for i, fp in enumerate(fill_plans) for plan in fp[3] if plan["kind"] == "swap_class"]
+    if not entries:
+        return {}
+    dev = datas[0].sometimes_matrix.device
+
+    def up(a):
+        return torch.as_tensor(a, device=dev)
+
+    with profiling.stage("fill/swap_tables"):
+        groups: dict = {}
+        for e in entries:
+            key = (tuple(datas[e["i"]].sometimes_matrix.shape), e["plan"]["w_b"])
+            groups.setdefault(key, []).append(e)
+        order, screen = [], []
+        for es in groups.values():
+            D0, G, P, T2, T3, gmax, tmax = swap_tables(
+                torch.stack([datas[e["i"]].sometimes_matrix for e in es]),
+                up(np.stack([e["plan"]["r0"] for e in es])),
+                up(np.stack([e["plan"]["c0"] for e in es])))
+            for t, e in enumerate(es):
+                e["tables"] = (D0[t], G[t], P[t], T2[t], T3[t])
+            order += es
+            screen.append(torch.stack([D0.abs().to(torch.float64), torch.maximum(gmax, tmax)]))
+        d0_gm = torch.cat(screen, dim=1).cpu().numpy()
+        for e, d0, gm in zip(order, d0_gm[0], d0_gm[1]):
+            e["forced"] = bool(d0 < 1e-12 or gm > _SWAP_GMAX)
+
+    with profiling.stage("fill/swap_probe"):
+        units = [(e, sub) for e in entries if not e["forced"] for sub in e["plan"]["sub"]]
+        pgroups: dict = {}
+        for e, sub in units:
+            key = (tuple(datas[e["i"]].sometimes_matrix.shape), e["plan"]["w_b"],
+                   sub["Rin"].shape, sub["Cin"].shape, sub["check_sel"].shape, sub["s_b"])
+            pgroups.setdefault(key, []).append((e, sub))
+        probed, vals = [], []
+        for key, us in pgroups.items():
+            args = _swap_units(datas, us, dev)
+            sw = swap_fill(*args, up(np.stack([sub["pr"][sub["check_sel"]] for _, sub in us])),
+                           up(np.stack([sub["pc"][sub["check_sel"]] for _, sub in us])),
+                           s_b=key[5])
+            dr = det_rows(args[0], up(np.stack([sub["check_idx_b"] for _, sub in us])),
+                          up(np.stack([sub["check_idx_k"] for _, sub in us])), args[1])
+            probed += us
+            vals.append(torch.stack([sw, dr]))
+        if vals:
+            sw_dr = torch.cat(vals, dim=1).cpu().numpy()
+            checks: dict = {}
+            for t, (e, _sub) in enumerate(probed):
+                checks.setdefault(id(e), (e, []))[1].append((sw_dr[0, t], sw_dr[1, t]))
+            for e, pl in checks.values():
+                if not _probe_ok(pl):
+                    e["forced"] = True
+                    logger.info("rank-update probe failed (class w=%d): near-singular "
+                                "intermediate swap; direct path", e["plan"]["w_b"])
+
+    with profiling.stage("fill/swap_dets"):
+        sgroups: dict = {}
+        for e, sub in units:
+            if e["forced"]:
+                continue
+            shape_b = _bucket_shape(fill_plans[e["i"]][0])
+            key = (tuple(datas[e["i"]].sometimes_matrix.shape), e["plan"]["w_b"],
+                   sub["Rin"].shape, sub["Cin"].shape, sub["pr"].shape, sub["s_b"], sub["spec"],
+                   shape_b)
+            sgroups.setdefault(key, []).append((e, sub))
+        for key, us in sgroups.items():
+            swap_fill(*_swap_units(datas, us, dev), up(np.stack([sub["pr"] for _, sub in us])),
+                      up(np.stack([sub["pc"] for _, sub in us])),
+                      tuple(up(np.stack([sub["tabs"][k] for _, sub in us])) for k in range(3)),
+                      s_b=key[5], spec=key[6], shape=key[7], out=bufs[key[7]],
+                      slot=[slot_of[e["i"]] for e, _ in us])
+
+    site_classes: dict = {}
+    for e in entries:
+        site_classes.setdefault(e["i"], []).append(e)
+    return site_classes
 
 
 #### ENTRY POINTS ####
@@ -1070,6 +1454,7 @@ def C_to_MPS(C, trunc_par, *, diag_tol: float = _DIAG_TOL, ortho_center: int | N
     elif L % unit_cell_width != 0:
         raise ValueError(f"{unit_cell_width = } does not divide system size {L}")
     n_fermion = int(np.round(float(torch.trace(C).real)))
+    _reset_swap_stats()
     # one host copy of C serves the FW sweep of every block of both
     # half-streams (the sweep is cached by the matrix's values)
     C_host = C.cpu().numpy() if use_fw(C, L) else None

@@ -426,3 +426,177 @@ def random_bdg_overlap_case(seed: int, *, G: int, nb: int, k1: int, k2: int,
             J.append(j)
     thresh = np.full(G, max(1e-6**x, 1e-300))
     return np.stack(V1), np.stack(V2), np.stack(J1), np.stack(J2), thresh
+
+
+def random_det_rows_case(seed: int, *, G: int, w: int, m: int, n: int, cross: bool = False,
+                         nk: int | None = None, dtype=np.float64):
+    """Seeded inputs of :func:`temfpy_torch.ops.kernels.det_rows`: ``G``
+    matrices (m, m) with per-matrix scales, and index rows of width ``w``
+    (each row holds w, w-1 or w-2 increasing orbitals, the rest sentinels
+    ``m + s``; the last row of each table all sentinels).  Paired: ``n``
+    row pairs with equal counts; ``cross``: ``n`` bra rows and ``nk`` (default
+    n; paired rows ignore it) ket rows.  Returns (args, kwargs) as numpy."""
+    rng = np.random.default_rng(seed)
+
+    def rows(k, cnt):
+        t = np.empty((k, w), np.int32)
+        for r in range(k):
+            t[r, : cnt[r]] = np.sort(rng.choice(m, size=cnt[r], replace=False))
+            t[r, cnt[r]:] = m + np.arange(cnt[r], w)
+        return t
+
+    nk = n if nk is None or not cross else nk
+    cnt_b = np.maximum(w - rng.integers(0, 3, n), 0)
+    cnt_b[-1] = 0
+    cnt_k = cnt_b.copy() if not cross else np.maximum(w - rng.integers(0, 3, nk), 0)
+    cnt_k[-1] = 0
+    M = rng.normal(size=(G, m, m), scale=m**-0.5).astype(dtype)
+    scale = (1.0 + rng.random(G)).astype(dtype)
+    if np.issubdtype(dtype, np.complexfloating):
+        M = M + 1j * rng.normal(size=(G, m, m), scale=m**-0.5)
+        scale = scale * np.exp(1j * rng.random(G))
+    idx_b = np.stack([rows(n, cnt_b) for _ in range(G)])
+    idx_k = np.stack([rows(nk, cnt_k) for _ in range(G)])
+    return (M, idx_b, idx_k, scale), {"cross": cross}
+
+
+def random_swap_case(seed: int, *, U: int, m: int, c: int, s_b: int, n_rows: int = 64,
+                     P: int = 2000, spec: str = "rrc", dtype=np.float64, n_check: int = 32,
+                     fail_probe: bool = False):
+    """Seeded inputs of :func:`temfpy_torch.ops.kernels.swap_tables` and
+    :func:`temfpy_torch.ops.kernels.swap_fill` shaped like one swap bucket
+    of the rank-update fill, for ``U`` units: sometimes matrices (m, m), a
+    base of ``c`` sorted positions per unit (sentinel-padded to the width
+    bucket w_b, a multiple of 8), per-side swap tables of ``n_rows`` rows of
+    width W = min(8, c) (each row swaps up to ``s_b`` base positions for
+    positions outside the base and self-swaps the rest; the last row is the
+    all-self-swap pad row) with their permutation signs, ``P`` random pairs
+    padded to a power of two >= 1024 with pad pairs, injective scatter
+    tables of layout ``spec`` and ``n_check`` strided checked pairs.
+
+    ``fail_probe`` builds a class that passes the pre-screen and fails the
+    probe: every ket row swaps out base position 0, half the bra rows swap
+    in one outside position j, and M[j, base[0]] = 3e5, so the tables reach
+    ~3e5 (under the 1e6 screen) while every pair's own submatrix stays
+    O(1); the bordered matrices then cancel ~1e11-sized terms.
+
+    Returns (M, r0, c0, swap_fill arguments after the tables, kwargs,
+    (check_idx_b, check_idx_k)) as numpy: ``(M, det_always, Rin, Rout,
+    Rpos, sgr, Cin, Cout, Cpos, sgc, pr, pc, tabs, check_sel)``, and the
+    direct index rows (U, n_check, w_b) of the checked pairs (sorted
+    positions, then sentinels), as the planner gives them to ``det_rows``."""
+    from .ops.linalg import perm_parity_rows
+
+    rng = np.random.default_rng(seed)
+    w_b = -(-c // 8) * 8
+    W = min(8, c)
+    cplx = np.issubdtype(dtype, np.complexfloating)
+    M = rng.normal(size=(U, m, m), scale=m**-0.5) + 1.5 * np.eye(m)
+    if cplx:
+        M = M + 1j * rng.normal(size=(U, m, m), scale=m**-0.5)
+    M = M.astype(dtype)
+    det_always = (1.0 + rng.random(U)).astype(dtype)
+    bases = [np.sort(rng.choice(m, size=c, replace=False)) for _ in range(U)]
+    sent = m + np.arange(w_b - c)
+    r0 = np.stack([np.concatenate([b, sent]) for b in bases]).astype(np.int32)
+
+    def side(base, lose0=False, gain=None):
+        n = n_rows
+        rin = np.empty((n, W), np.int32)
+        rout = np.empty((n, W), np.int32)
+        rpos = np.empty((n, W), np.int32)
+        outside = np.setdiff1d(np.arange(m), base)
+        for t in range(n):
+            a = 0 if t == n - 1 else int(rng.integers(0, min(s_b, len(outside)) + 1))
+            pos = np.sort(rng.choice(c, size=W, replace=False)) if t < n - 1 else np.arange(W)
+            new = rng.choice(outside, size=a, replace=False)
+            if t < n - 1 and lose0:  # base position 0 always swapped out
+                a = max(a, 1)
+                pos = np.concatenate([[0], np.sort(rng.choice(np.arange(1, c), W - 1, False))])
+                new = rng.choice(outside[outside != gain] if gain is not None else outside,
+                                 size=a, replace=False)
+            if t < n - 1 and gain is not None and t % 2 == 0:  # swap in position `gain`
+                a = max(a, 1)
+                new = np.concatenate([[gain], rng.choice(outside[outside != gain], a - 1, False)])
+            rpos[t] = pos
+            rout[t] = base[pos]
+            rin[t] = rout[t]
+            rin[t, :a] = new
+        return rin, rout, rpos, perm_parity_rows(base.astype(np.int64), rpos, rin)
+
+    tabsides = []
+    for u, b in enumerate(bases):
+        if fail_probe:
+            j = int(np.setdiff1d(np.arange(m), b)[0])
+            M[u, j, b[0]] = 3e5
+            tabsides.append((side(b, gain=j), side(b, lose0=True, gain=j)))
+        else:
+            tabsides.append((side(b), side(b)))
+    stk = lambda k, j: np.stack([ts[k][j] for ts in tabsides])  # noqa: E731
+    Rin, Rout, Rpos, sgr = (stk(0, j) for j in range(4))
+    Cin, Cout, Cpos, sgc = (stk(1, j) for j in range(4))
+    R = K = n_rows
+    P_b = 1024
+    while P_b < P:
+        P_b *= 4
+    pr = np.full((U, P_b), R - 1, np.int32)
+    pc = np.full((U, P_b), K - 1, np.int32)
+    for u in range(U):
+        flat = rng.choice((R - 1) * (K - 1), size=P, replace=False)
+        pr[u, :P], pc[u, :P] = flat // (K - 1), flat % (K - 1)
+    col = np.arange(K, dtype=np.int32)
+    if spec == "rrc":
+        a_ = np.arange(R, dtype=np.int32) // 2
+        a_[-1] = R // 2
+        tabs, shape = (a_, np.arange(R, dtype=np.int32) % 2, col), (R // 2, 2, K)
+    elif spec == "crr":
+        col[-1] = K - 1
+        tabs, shape = (col, np.arange(R, dtype=np.int32) % 2,
+                       np.arange(R, dtype=np.int32) // 2), (K - 1, 2, R // 2)
+    elif spec == "rc":
+        tabs, shape = (np.arange(R, dtype=np.int32), col, np.zeros(1, np.int32)), (R - 1, K)
+    else:
+        raise ValueError(spec)
+    stack = lambda a: np.stack([a] * U)  # noqa: E731
+    check_sel = stack(np.linspace(0, P - 1, n_check).astype(np.int32))
+
+    def direct_rows(Tin, Tpos, ids):
+        out = np.empty((U, n_check, w_b), np.int32)
+        for u in range(U):
+            for q, t in enumerate(ids[u]):
+                arr = bases[u].copy()
+                arr[Tpos[u, t, :s_b]] = Tin[u, t, :s_b]
+                out[u, q] = np.concatenate([np.sort(arr), sent])
+        return out
+
+    chk_b = direct_rows(Rin, Rpos, np.take_along_axis(pr, check_sel, 1))
+    chk_k = direct_rows(Cin, Cpos, np.take_along_axis(pc, check_sel, 1))
+    args = (M, det_always, Rin, Rout, Rpos, sgr, Cin, Cout, Cpos, sgc, pr, pc,
+            tuple(stack(t) for t in tabs), check_sel)
+    return M, r0, r0.copy(), args, {"s_b": s_b, "spec": spec, "shape": shape}, (chk_b, chk_k)
+
+
+def random_pf_gather_case(seed: int, *, m: int, nb: int, nk: int, kb: int, kk: int,
+                          dtype=np.complex128):
+    """Seeded inputs of :func:`temfpy_torch.ops.kernels.pf_gather`: an
+    antisymmetric N (m, m), ket rows of ``kk`` positions in [0, m/2) and bra
+    rows of ``kb`` positions in [m/2, m), the last bra rows padded at the
+    tail with J-block sentinels ``m, m+1, ...`` (an even run).  Returns
+    (N, bra_idx, ket_idx, pad_slots) as numpy."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(m, m))
+    if np.issubdtype(dtype, np.complexfloating):
+        A = A + 1j * rng.normal(size=(m, m))
+    N = ((A - A.T) * (0.5 / m**0.5)).astype(dtype)
+    ket = np.stack([np.sort(rng.choice(m // 2, size=kk, replace=False))
+                    for _ in range(nk)]).astype(np.int32)
+    bra = np.stack([np.sort(rng.choice(np.arange(m // 2, m), size=kb, replace=False))
+                    for _ in range(nb)]).astype(np.int32)
+    pad = 0
+    for i in range(nb):
+        t = 2 * (i % 3) if kb >= 4 else 0  # 0, 2 or 4 tail sentinels
+        t = min(t, kb - kb % 2)
+        if t:
+            bra[i, kb - t:] = m + np.arange(t)
+            pad = max(pad, t)
+    return N, bra, ket, pad

@@ -44,6 +44,11 @@ def test_det_fill_kernel_matches_twin(cuda, w, spec, dtype):
     got = kernels.det_fill(*a, **kw)
     assert kernels.det_fill.launches == before + 1
     assert _rel(got, kernels.det_fill_plain(*a, **kw)) <= RTOL
+    # in place, each site into its slot of a shared buffer
+    shape = kw["shape"]
+    buf = torch.zeros((4, shape[0] + 1) + tuple(shape[1:]), dtype=got.dtype, device=cuda)
+    kernels.det_fill(*a, **kw, out=buf, slot=[3, 0, 1])
+    assert torch.equal(buf[[3, 0, 1], : shape[0]], got) and not buf[2].any()
 
 
 @pytest.mark.parametrize("mode", ["left", "right"])
@@ -185,3 +190,118 @@ def test_bdg_overlap_gmem_kernel_matches_twin(cuda, nb, k1, k2, x):
     assert kernels.bdg_overlap.launches == smem
     N0, norm0 = kernels.bdg_overlap_plain(*c)
     assert _rel(N, N0) <= RTOL and _rel(norm, norm0) <= RTOL
+
+
+@pytest.mark.parametrize("w", [4, 8, 16, 24, 64])
+@pytest.mark.parametrize("cross", [False, True])
+@pytest.mark.parametrize("dtype", ["float64", "complex128"])
+def test_det_rows_kernel_matches_twin(cuda, w, cross, dtype):
+    (M, ib, ik, sc), kw = testing.random_det_rows_case(w, G=3, w=w, m=max(w, 20), n=300, nk=40,
+                                                       cross=cross, dtype=dtype)
+    a = [torch.as_tensor(x, device=cuda) for x in (M, ib, ik, sc)]
+    before = kernels.det_rows.launches
+    got = kernels.det_rows(*a, **kw)
+    assert kernels.det_rows.launches == before + 1
+    assert _rel(got, kernels.det_rows_plain(*a, **kw)) <= RTOL
+
+
+@pytest.mark.parametrize("s_b,c,spec", [(1, 5, "rc"), (2, 6, "rrc"), (4, 12, "crr"),
+                                        (8, 20, "rrc"), (8, 44, "crr")])
+@pytest.mark.parametrize("dtype", ["float64", "complex128"])
+def test_swap_kernels_match_twins(cuda, s_b, c, spec, dtype):
+    """swap_tables at w_b = 8..48 and swap_fill in both modes, with pad
+    pairs on the trash row and self-swap pad columns."""
+    M, r0, c0, args, kw, _rows = testing.random_swap_case(s_b + c, U=3, m=c + 14, c=c, s_b=s_b,
+                                                          n_rows=40, P=1200, spec=spec,
+                                                          dtype=dtype)
+    up = lambda x: torch.as_tensor(x, device=cuda)  # noqa: E731
+    t0, f0 = kernels.swap_tables.launches, kernels.swap_fill.launches
+    tab = kernels.swap_tables(up(M), up(r0), up(c0))
+    ref = kernels.swap_tables_plain(up(M), up(r0), up(c0))
+    for x, y in zip(tab, ref):
+        assert _rel(x, y) <= RTOL
+    (Mm, det, Rin, Rout, Rpos, sgr, Cin, Cout, Cpos, sgc, pr, pc, tabs, _chk) = args
+    fa = [up(Mm), up(det), *tab[:5], *(up(x) for x in (Rin, Rout, Rpos, sgr, Cin, Cout, Cpos, sgc,
+                                                        pr, pc))]
+    sc = tuple(up(t) for t in tabs)
+    T = kernels.swap_fill(*fa, sc, **kw)
+    T0 = kernels.swap_fill_plain(*fa, sc, **kw)
+    assert _rel(T, T0) <= RTOL
+    # in place, each unit into its slot of a shared buffer
+    buf = torch.zeros((4, kw["shape"][0] + 1) + tuple(kw["shape"][1:]), dtype=T.dtype,
+                      device=cuda)
+    got = kernels.swap_fill(*fa, sc, **kw, out=buf, slot=[3, 0, 1])
+    assert got.data_ptr() == buf.data_ptr()
+    assert torch.equal(buf[[3, 0, 1], : kw["shape"][0]], T) and not buf[2].any()
+    v = kernels.swap_fill(*fa, s_b=s_b)
+    assert _rel(v, kernels.swap_fill_plain(*fa, s_b=s_b)) <= RTOL
+    assert kernels.swap_tables.launches == t0 + 1 and kernels.swap_fill.launches == f0 + 3
+
+
+@pytest.mark.parametrize("kb,kk", [(3, 1), (4, 4), (10, 6), (20, 12)])
+@pytest.mark.parametrize("dtype", ["float64", "complex128"])
+def test_pf_gather_kernel_matches_twin(cuda, kb, kk, dtype):
+    N, bra, ket, pad = testing.random_pf_gather_case(kb, m=48, nb=30, nk=20, kb=kb, kk=kk,
+                                                     dtype=dtype)
+    a = [torch.as_tensor(x, device=cuda) for x in (N, bra, ket)]
+    before = kernels.pf_gather.launches
+    got = kernels.pf_gather(*a, pad)
+    assert kernels.pf_gather.launches == before + 1
+    assert _rel(got, kernels.pf_gather_plain(*a, pad)) <= RTOL
+
+
+def test_new_kernels_reject_what_they_do_not_take(cuda):
+    M = torch.zeros((1, 8, 8), dtype=torch.float64, device=cuda)
+    wide = torch.zeros((1, 4, 65), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="width"):
+        kernels.det_rows(M, wide, wide)
+    with pytest.raises(TypeError):
+        kernels.det_rows(M, wide[..., :8].long(), wide[..., :8].long())
+    with pytest.raises(ValueError, match="width"):
+        kernels.swap_tables(M, wide[0], wide[0])
+    N = torch.zeros((8, 8), dtype=torch.complex128, device=cuda)
+    rows = torch.zeros((2, 17), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="Pfaffian width"):
+        kernels.pf_gather(N, rows, rows, 0)
+
+
+def test_public_index_row_ops_on_cuda_match_cpu(cuda):
+    """ops.linalg.batched_det_pairs / batched_det_gather and
+    ops.pfaffian.batched_pfaffian_gather launch det_rows and pf_gather on a
+    CUDA tensor and agree with the CPU."""
+    from temfpy_torch.ops import linalg, pfaffian as opf
+
+    (M, ib, ik, _sc), _kw = testing.random_det_rows_case(1, G=1, w=8, m=20, n=50, nk=9,
+                                                         cross=True)
+    Mc, Mg = torch.as_tensor(M[0]), torch.as_tensor(M[0], device=cuda)
+    n5, n7 = kernels.det_rows.launches, kernels.pf_gather.launches
+    g = linalg.batched_det_gather(Mg, ib[0], ik[0], chunk=16)
+    assert _rel(g.cpu(), linalg.batched_det_gather(Mc, ib[0], ik[0])) <= RTOL
+    p = linalg.batched_det_pairs(Mg, ib[0][:9], ik[0])
+    assert _rel(p.cpu(), linalg.batched_det_pairs(Mc, ib[0][:9], ik[0])) <= RTOL
+    N, bra, ket, pad = testing.random_pf_gather_case(2, m=24, nb=7, nk=5, kb=6, kk=4)
+    q = opf.batched_pfaffian_gather(torch.as_tensor(N, device=cuda), bra, ket, pad)
+    assert _rel(q.cpu(), opf.batched_pfaffian_gather(torch.as_tensor(N), bra, ket, pad)) <= RTOL
+    assert kernels.det_rows.launches == n5 + 5 and kernels.pf_gather.launches == n7 + 1
+
+
+def test_swap_conversion_on_cuda_matches_cpu(cuda, monkeypatch):
+    """The rank-update path forced on the card (swap_tables, swap_fill and the
+    det_rows probe launched) against the CPU's swap path."""
+    monkeypatch.setenv("TEMFPY_TORCH_DET_UPDATES", "1")
+    H = np.zeros((32, 32))
+    for x in range(4):
+        for y in range(8):
+            i = 8 * x + y
+            H[i, 8 * x + (y + 1) % 8] = H[8 * x + (y + 1) % 8, i] = -1.0
+            if x < 3:
+                H[i, i + 8] = H[i + 8, i] = -1.0 if x % 2 == 0 else -1.3
+    H -= 0.05 * np.eye(32)
+    tp = {"chi_max": 96}
+    for name in ("swap_tables", "swap_fill", "det_rows"):
+        getattr(kernels, name).launches = 0
+    gpu = slater.H_to_MPS(H, tp, device=cuda)
+    assert all(getattr(kernels, n).launches > 0 for n in ("swap_tables", "swap_fill", "det_rows"))
+    cpu = slater.H_to_MPS(H, tp, device="cpu")
+    f = abs(gpu.overlap(cpu)) / np.sqrt(gpu.norm_squared() * cpu.norm_squared())
+    assert f >= 1 - 1e-10

@@ -163,10 +163,12 @@ def test_fw_conversion_matches_jax_and_exact_frontend(monkeypatch):
 
 
 def test_use_fw_modes(monkeypatch):
-    """auto: on for a real C on a CUDA device at L >= fw_min_L (the CPU
-    never); "1" forces it on the CPU; "0" and a complex C turn it off."""
+    """auto: off on every device and at every L (the exact frontend is the
+    faster and more exact one on the card); "1" forces it on; "0" and a
+    complex C turn it off."""
     C = torch.zeros((800, 800), dtype=torch.float64)
-    assert fw.fw_min_L() == 768 and not fw.use_fw(C, 800)
+    assert fw.fw_mode() == "auto" and not fw.use_fw(C, 800) and not fw.use_fw(C.numpy(), 4096)
+    assert not hasattr(fw, "fw_min_L")
     monkeypatch.setenv("TEMFPY_TORCH_FW", "1")
     assert fw.use_fw(C, 800) and fw.use_fw(C.numpy(), 8)
     assert not fw.use_fw(C.to(torch.complex128), 800)

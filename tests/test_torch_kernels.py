@@ -133,9 +133,12 @@ def _port_data(plan, det, som):
                                 **plan["fields"])
 
 
-def test_fill_plans_match_jax_planner(captured):
+def test_fill_plans_match_jax_planner(captured, monkeypatch):
     """The port's host planning gives the JAX planner's packed plans, bit
-    for bit, on the same site data (integer tables: compared exactly)."""
+    for bit, on the same site data (integer tables: compared exactly).
+    Both planners take their direct path (the captured JAX plans were made
+    with TEMFPY_TPU_DET_UPDATES=0)."""
+    monkeypatch.setenv("TEMFPY_TORCH_DET_UPDATES", "0")
     for plan, det, som, shape, fplans in captured:
         shape_p, _ql, _qr, plans = _port_data(plan, det, som)._plan_fill()
         assert shape_p == shape and len(plans) == len(fplans)
@@ -147,11 +150,13 @@ def test_fill_plans_match_jax_planner(captured):
                 np.testing.assert_array_equal(t, u)
 
 
-def test_direct_arrays_unpack_the_packed_plan(captured):
+def test_direct_arrays_unpack_the_packed_plan(captured, monkeypatch):
     """The port's packed plan, expanded to one row per pair (each pair's
     occupation rows, and its scatter coordinates through ``spec``, pad
     pairs included), equals the JAX package's unpacked ``_direct_arrays``
-    on the same pairs: what the kernel gathers and where it writes."""
+    on the same pairs: what the kernel gathers and where it writes.  The
+    port plans its direct path, as the captured JAX plans were made."""
+    monkeypatch.setenv("TEMFPY_TORCH_DET_UPDATES", "0")
     n = 0
     for plan, det, som, shape, _fplans in captured:
         data = _port_data(plan, det, som)

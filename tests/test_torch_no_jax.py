@@ -30,6 +30,22 @@ def test_port_imports_and_runs_without_jax():
         bdg = pfaffian.H_to_MPS(testing.pip_hamiltonian(2, 3), {"chi_max": 16}, basis="C",
                                 device="cpu")
         assert abs(bdg.norm_squared() - 1) < 1e-10
+        # the rank-update fill (on by default for CPU conversions) and the
+        # index-row batches
+        W, L = 8, 32
+        Hc = np.zeros((L, L))
+        for i in range(L):
+            Hc[i, (i // W) * W + (i + 1) % W] = Hc[(i // W) * W + (i + 1) % W, i] = -1.0
+            if i + W < L:
+                Hc[i, i + W] = Hc[i + W, i] = -1.0
+        swap = slater.H_to_MPS(Hc, {"chi_max": 96}, device="cpu")
+        assert slater._swap_stats()["classes"] > 0 and swap.L == L
+        import torch
+        M = torch.eye(4, dtype=torch.float64)
+        assert linalg.batched_det_gather(M, [[0, 1]], [[0, 1], [1, 0]]).tolist() == [[1.0, -1.0]]
+        assert linalg.batched_det_pairs(M, [[0, 1]], [[1, 0]]).tolist() == [-1.0]
+        N = torch.tensor([[0.0, 2.0], [-2.0, 0.0]], dtype=torch.complex128)
+        assert complex(ops_pfaffian.batched_pfaffian_gather(N, [[1]], [[0]], 0)[0, 0]) == 2
         bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "temfpy_tpu")))
         assert not bad, bad
         print("ok")
