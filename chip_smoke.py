@@ -61,17 +61,31 @@ Phases, each printing a line; any failure raises and exits non-zero:
    kernel/twin error ratios there), the state against phase 5's, and both
    paths' warm wall time;
 7. the slice at L=1024: ``slater.H_to_MPS`` on bench config 1's cylinder at
-   chi=512 through the FW frontend (forced on), with phase 5's checks and
-   records, then one conversion with the default exact frontend for the
-   frontend comparison.
+   chi=512 through the FW frontend (forced on), one conversion counted and
+   profiled (its cold and warm runs took the same time), with phase 5's
+   checks and records, then one conversion with the default exact frontend for the
+   frontend comparison (its states, clean and disordered, are kept for 9);
+3f. the randomized frontend's kernels: every mode of ``rsf_apply``,
+   ``rsf_tsprod``, ``rsf_ritz_select`` and ``rsf_frames`` against its twin
+   on seeded inputs at the main path's shapes (L=1024, m=32, r=64,
+   rf=512, kb=96, both sides; a dropped lane, a band keeping nothing);
+4f. small RSF parity: phase 4's conversion with ``TEMFPY_TORCH_RSF=1`` on
+   the card and on the CPU, and against the card's exact frontend;
+9. the randomized frontend at full width: bench config 1 at L=1024,
+   chi=512 with ``TEMFPY_TORCH_RSF=1``, one conversion counted and
+   profiled, with phase 7's checks, the cuts rerouted to the exact
+   frontend, every kernel call of three main-path chunks (one per side
+   whose cuts are rerouted, one whose cuts are kept) held against its twin,
+   the state against phase 7's exact states (clean and disordered), and
+   both frontends' times.
 
-Phases 3e, 5, 6, 7 and 8 set their kernels' launch counts to 0 just before
-their main-path run and read them just after (4c, 4d and 4e check that
-theirs launched).  The phases of the earlier slices run the direct fill
+Phases 3e, 5, 6, 7, 8 and 9 set their kernels' launch counts to 0 just
+before their main-path run and read them just after (4c, 4d, 4e and 4f
+check that theirs launched).  The phases of the earlier slices run the direct fill
 on both devices (``TEMFPY_TORCH_DET_UPDATES=0``; the CPU's default is the
 rank-update path).  The second-to-last line
 is a JSON object with one record per kernel: its launches in its slice's
-cold conversion, its worst absolute error against the twin over the seeded
+counted (cold) conversion, its worst absolute error against the twin over the seeded
 and main-path checks (for ``swap_tables``, whose tables span 1e-18 to
 1e29, the error relative to each output's largest entry), the kernel's and the twin's milliseconds summed over
 one main-path group per shape, the least time the card could take for the
@@ -83,6 +97,7 @@ and the time of one PyTorch call computing the same function
 """
 
 import contextlib
+import copy
 import json
 import os
 import subprocess
@@ -686,17 +701,22 @@ def check_captured_slater(torch, kernels, label, cap):
 
 
 def slater_slice(torch, np, slater, fw, kernels, profiling, H, chi, label, counted,
-                 bounds=None, every=()):
-    """Phases 5, 7 and 8: ``slater.H_to_MPS`` of H at ``chi`` on the card,
+                 bounds=None, every=(), hold_fill=True, profile=None, canon=True, once=False):
+    """Phases 5, 7, 8 and 9: ``slater.H_to_MPS`` of H at ``chi`` on the card,
     cold (the launch counts of ``counted`` set to 0 just before and read
     just after, with the rank-update statistics) and warm (stage profile,
     the kernels' input shapes, and the inputs of one group per shape, held
-    against the twins; every group of the kernels in ``every`` is kept in
-    the capture); then the checks of :func:`check_slater_state` and a
-    device profile.  The FW cache is cleared before each conversion, so
-    each runs its own sweep.  Returns a dict: ``launches``, ``rec``
-    (records), ``raw`` (the warm run's state as converted), ``cap`` (the
-    warm run's capture), ``warm`` (seconds) and ``stats``."""
+    against the twins unless ``hold_fill`` is False; every group of the
+    kernels in ``every`` is kept in the capture); ``once``: one conversion
+    is both (the L=1024 phases, whose two runs took the same time within
+    5%); then the checks of :func:`check_slater_state` (``canon``: with its
+    canonical_form_finite round, on a copy of the state under ``once``) and
+    a device profile of one more conversion, or of the callable ``profile``
+    where given.  The FW cache is cleared before each conversion, so each
+    runs its own sweep.  Returns a dict: ``launches``, ``rec`` (records),
+    ``raw`` (the warm run's state as converted), ``cap`` (the warm run's
+    capture), ``warm`` (seconds), ``prof`` (its stage profile) and
+    ``stats``."""
     L = H.shape[0]
     tp = {"chi_max": chi}
 
@@ -704,35 +724,44 @@ def slater_slice(torch, np, slater, fw, kernels, profiling, H, chi, label, count
         fw.fw_clear_cache()
         return slater.H_to_MPS(H, tp, device="cuda")
 
-    torch.cuda.reset_peak_memory_stats()
+    def counts(t_run, what):
+        launches = {name: getattr(kernels, name).launches for name in counted}
+        stats = dict(slater._swap_stats())
+        print(f"{label}: {what} conversion {t_run:.3f} s; launches {launches}; rank-update "
+              f"classes {stats}", flush=True)
+        for name, n in launches.items():
+            if n <= 0:
+                raise AssertionError(f"kernel {name} was not launched by the main path")
+        if "fw_frame_slab" in counted and fw._CACHE[-1][1] is None:
+            raise AssertionError(f"{label}: the FW sweep fell back to the exact frontend")
+        return launches, stats
+
     for name in counted:
         getattr(kernels, name).launches = 0
-    t0 = time.perf_counter()
-    mps = run()
-    torch.cuda.synchronize()
-    cold = time.perf_counter() - t0
-    launches = {name: getattr(kernels, name).launches for name in counted}
-    stats = dict(slater._swap_stats())
-    print(f"{label}: cold conversion {cold:.3f} s; launches {launches}; rank-update classes "
-          f"{stats}", flush=True)
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched by the main path")
-    if "fw_frame_slab" in counted and fw._CACHE[-1][1] is None:
-        raise AssertionError(f"{label}: the FW sweep fell back to the exact frontend")
+    if not once:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        mps = run()
+        torch.cuda.synchronize()
+        launches, stats = counts(time.perf_counter() - t0, "cold")
 
     # warm run: stage profile, the shapes the kernels were given, and the
     # inputs of the first group of each shape
+    resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     with slater_capture(slater, fw, every) as cap, profiling.collect() as prof:
         t0 = time.perf_counter()
         raw = run()
         torch.cuda.synchronize()
         warm = time.perf_counter() - t0
+    if once:
+        launches, stats = counts(warm, "counted")
+        mps = copy.deepcopy(raw) if canon else raw
     widths, kbs = cap["widths"], cap["kbs"]
     peak = torch.cuda.max_memory_allocated()
-    print(f"{label}: warm conversion {warm:.3f} s (stages synchronised); "
-          f"max_memory_allocated {peak / 2**20:.1f} MiB", flush=True)
+    print(f"{label}: {'the same' if once else 'warm'} conversion {warm:.3f} s (stages "
+          f"synchronised); max_memory_allocated {peak / 2**20:.1f} MiB, of it "
+          f"{resident / 2**20:.1f} MiB resident before the run", flush=True)
     print(prof.report(), flush=True)
     pairs = Counter()
     for (w, P_b), g in widths.items():
@@ -742,21 +771,21 @@ def slater_slice(torch, np, slater, fw, kernels, profiling, H, chi, label, count
           f"total {sum(pairs.values())}", flush=True)
     print(f"{label}: site_overlap_schur (kb, mb) -> sites:", dict(sorted(kbs.items())),
           flush=True)
-    rec = check_captured_slater(torch, kernels, label, cap)
-    check_slater_state(torch, np, slater, mps, H, chi, label, bounds)
-    device_profile(torch, run, label)
+    rec = check_captured_slater(torch, kernels, label, cap) if hold_fill else {}
+    check_slater_state(torch, np, slater, mps, H, chi, label, bounds, canon=canon)
+    device_profile(torch, profile or run, label)
     return {"launches": launches, "rec": rec, "raw": raw, "cap": cap, "warm": warm,
-            "stats": stats}
+            "prof": prof, "stats": stats}
 
 
-def check_slater_state(torch, np, slater, mps, H, chi, label, bounds):
+def check_slater_state(torch, np, slater, mps, H, chi, label, bounds, canon=True):
     """The exact parts of a Slater MPS: chi, normalised Schmidt values,
     label and tensor dimensions, finite tensors, charge conservation, edge
     canonicality (sites 0 and L-1), sum <n_i> = N, and exact canonicality
     after ``canonical_form_finite`` at sites 0, L/2, L-1 with the state
-    unchanged.  The chi truncation's effects (the centre's Schmidt-weighted
-    residual, <n_i> against C) are printed, and held to ``bounds`` where
-    given."""
+    unchanged (``canon`` False leaves that round out).  The chi
+    truncation's effects (the centre's Schmidt-weighted residual, <n_i>
+    against C) are printed, and held to ``bounds`` where given."""
     L = H.shape[0]
     if mps.chi_max != chi:
         raise AssertionError(f"chi_max {mps.chi_max} != {chi}")
@@ -800,6 +829,8 @@ def check_slater_state(torch, np, slater, mps, H, chi, label, bounds):
         raise AssertionError(f"sum of <n_i> = {n.sum()!r} != N = {N}")
     if bounds and not dev <= bounds["n"]:
         raise AssertionError(f"<n_i> deviates from diag(C) by {dev:.3e} > {bounds['n']}")
+    if not canon:
+        return
 
     # the same state brought into exact right-canonical form by the MPS
     # engine (charged QR and SVD sweeps, no truncation): every site then
@@ -835,6 +866,27 @@ PHASE5_BOUNDS = {"weighted_residual": 1e-2, "n": 1e-2}
 truncation moves (see :func:`phase_full`)."""
 
 
+def stream_block(slater, H, chi, fw_host=False):
+    """A callable that runs one stream block of ``slater.C_to_MPS`` on the
+    card: the frontend, the Schmidt enumeration and the site fills of the
+    first 64 cuts right of the centre (``fw_host``: with the host copy of
+    C the FW frontend takes).  The device profiles of the L=1024 phases
+    cover this window: a whole conversion takes the profiler minutes to
+    process (the RSF one holds ~1.3 million cuSOLVER kernels)."""
+    C, N = slater.correlation_matrix(H, device="cuda")
+    c = C.shape[0] // 2
+    tp = slater.to_stopping_condition({"chi_max": chi})
+    centre = slater.SchmidtVectors.from_correlation_matrix(C, c, tp, diag_tol=1e-8)
+    C_host = C.cpu().numpy() if fw_host else None
+
+    def run():
+        svs = slater._schmidt_vectors_batched(C, list(range(c + 1, c + 65)), "R", tp, 1e-8,
+                                              64, N, C_host)
+        return slater.build_site_tensors(
+            [(sv, prev, "right") for sv, prev in zip(svs, [centre] + svs[:-1])])
+    return run
+
+
 def device_profile(torch, run, label):
     """One more warm conversion under torch.profiler: device busy time by
     kernel against the wall time (what the stage profile cannot see)."""
@@ -863,7 +915,10 @@ def device_profile(torch, run, label):
     for kernel in ("det_fill_kernel", "site_overlap_schur_kernel",
                    "site_overlap_schur_gmem_kernel", "fw_frame_slab_kernel", "pf_fill_kernel",
                    "bdg_overlap_kernel", "bdg_overlap_gmem_kernel", "swap_tables_kernel",
-                   "swap_fill_kernel", "det_rows_kernel"):
+                   "swap_fill_kernel", "det_rows_kernel", "rsf_apply_kernel",
+                   "rsf_gram_kernel", "rsf_combine_kernel", "rsf_ritz_shift_kernel",
+                   "rsf_ritz_select_kernel", "rsf_frames_stats_kernel",
+                   "rsf_frames_place_kernel"):
         hits = [(us, n) for us, name, n in rows if kernel in name]
         if hits:
             print(f"{label}: {kernel} device time in the conversion "
@@ -1509,18 +1564,24 @@ def compare_frontends(np, a, b):
 def phase_slice(torch, np, slater, fw, kernels, profiling):
     """Phase 7: the slice at full size, ``slater.H_to_MPS`` on bench config
     1's W=8 cylinder at L=1024, chi=512, float64, with the FW frontend
-    forced on (TEMFPY_TORCH_FW=1; its "auto" is off on the card): cold and
-    warm, stage profile, every kernel against its twin on the conversion's
-    own inputs, the exact parts of the state and the chi truncation's
-    effects (SLICE_BOUNDS), a device profile; then one conversion with the
+    forced on (TEMFPY_TORCH_FW=1; its "auto" is off on the card): one
+    conversion with the launches counted and the stage profile, every
+    kernel against its twin on the conversion's own inputs, the exact parts
+    of the state and the chi truncation's effects (SLICE_BOUNDS), the
+    canonical_form_finite round on a copy of the state, a device profile of
+    one stream block (:func:`stream_block`); then one conversion with the
     default exact device frontend, timed for the frontend comparison and
-    held against the FW state (:func:`frontend_checks`)."""
+    held against the FW state (:func:`frontend_checks`).  Returns the
+    launches, the records and the exact frontend's states (bench config 1
+    and its disordered twin), warm time and eigh_batch stage, which phase 9
+    compares with."""
     H = cylinder(8, 1024)
     res = with_fw_mode("1", lambda: slater_slice(
         torch, np, slater, fw, kernels, profiling, H, 512, "phase 7",
         ("det_fill", "site_overlap_schur", "site_overlap_schur_gmem", "fw_frame_slab"),
-        bounds=SLICE_BOUNDS))
+        bounds=SLICE_BOUNDS, profile=stream_block(slater, H, 512, fw_host=True), once=True))
     # timed as the FW warm run is (stages synchronised), for the comparison
+    resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     with profiling.collect() as prof:
         t0 = time.perf_counter()
@@ -1529,10 +1590,12 @@ def phase_slice(torch, np, slater, fw, kernels, profiling):
         t_ex = time.perf_counter() - t0
     print(f"phase 7: exact device frontend (the default): warm conversion {t_ex:.3f} s (stages "
           f"synchronised); max_memory_allocated "
-          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, of it {resident / 2**20:.1f} "
+          f"MiB resident before the run", flush=True)
     print(prof.report(), flush=True)
-    frontend_checks(torch, np, slater, fw, H, 512, res["raw"], exact)
-    return res["launches"], res["rec"]
+    ex_d = frontend_checks(torch, np, slater, fw, H, 512, res["raw"], exact)
+    return res["launches"], res["rec"], {"exact": exact, "exact_dis": ex_d, "t_exact": t_ex,
+                                         "eigh_exact": prof.seconds.get("eigh_batch", 0.0)}
 
 
 def frontend_checks(torch, np, slater, fw, H, chi, fw_state, exact):
@@ -1549,12 +1612,13 @@ def frontend_checks(torch, np, slater, fw, H, chi, fw_state, exact):
       the degeneracies: FW (forced on) against the default exact frontend,
       both at ``chi``, the same
       kept counts on every bond and 1 - fidelity within FW_EXACT_TOL.  A
-      wrong frame column or Schur solve at this shape fails here."""
+      wrong frame column or Schur solve at this shape fails here.
+
+    Returns the exact frontend's disordered state."""
     diag = slater.correlation_matrix(H, device="cuda")[0].diagonal().cpu().numpy()
     dev = {k: float(np.abs(m.expectation_value("N").real / m.norm_squared() - diag).max())
            for k, m in (("FW", fw_state), ("exact", exact))}
     clean = compare_frontends(np, fw_state, exact)
-    del exact
     Hd = H + np.diag(1e-3 * np.random.default_rng(3).normal(size=len(H)))
     tp = {"chi_max": chi}
     fw.fw_clear_cache()
@@ -1589,6 +1653,7 @@ def frontend_checks(torch, np, slater, fw, H, chi, fw_state, exact):
                         f"{dis['infidelity']:.3e} > {FW_EXACT_TOL}")
     if failures:
         raise AssertionError("phase 7: " + "; ".join(failures))
+    return ex_d
 
 
 # --------------------------------------------------------------------------
@@ -2162,6 +2227,433 @@ def phase_swap_slice(torch, np, slater, fw, kernels, profiling, direct):
     return res["launches"], res["rec"]
 
 
+# --------------------------------------------------------------------------
+# The randomized spectral frontend (K11a-d)
+# --------------------------------------------------------------------------
+
+RSF_KERNELS = ("rsf_apply", "rsf_tsprod", "rsf_ritz_select", "rsf_frames")
+RSF_TRACE_ATOL = 1e-12
+"""K11d's trace residuals |tr - sum lambda - n_f| (about 1e-13 on the main
+path) against the twin's: both add the same float64 eigenvalues in another
+order, so absolute 1e-12."""
+
+
+def rsf_outputs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def rsf_magnitude(kernels, name, mode, args, kw):
+    """The scale a K11 product's rounding is measured against: the largest
+    entry of |A| |B| (the twin on the operands' absolute values), and of
+    |Z| for "sub".  The sweep's products cancel (a deflation removes most
+    of its input; C_LR^T applied to a small singular vector), so the
+    output's own largest entry would hold float64 rounding to the wrong
+    scale.  None for the kernels that only filter and place."""
+    plain = getattr(kernels, name + "_plain")
+    if name == "rsf_apply":
+        C, X, sizes = args
+        return float(plain(mode, C.abs(), X.abs(), sizes, **kw).max())
+    if name != "rsf_tsprod":
+        return None
+    A, B, sizes = args
+    kw_abs = {k: v for k, v in kw.items() if k not in ("Z", "e", "floor")}
+    m = plain("gram" if mode == "gram" else "mul", A.abs(), B.abs(), sizes, **kw_abs)
+    return max(finite_max(m), finite_max(kw["Z"].abs()) if mode == "sub" else 0.0)
+
+
+def finite_max(t):
+    """Largest finite entry of ``t`` (0 if none): a cut whose Cholesky
+    failed carries non-finite filled columns, which the caller reroutes."""
+    t = t[t.isfinite()]
+    return float(t.max()) if t.numel() else 0.0
+
+
+def rsf_err(kernels, name, mode, args, kw, out, ref):
+    """(relative, absolute) error of a K11 kernel's outputs against its
+    twin's: integer outputs must be equal (else inf); float outputs must
+    be non-finite at the same entries with the same value (NaN with NaN:
+    a cut whose Cholesky failed, rerouted by the caller), else inf, and
+    their finite entries are compared relative to :func:`rsf_magnitude`
+    for the products ("scale" outputs
+    with each column's 1/sqrt(e) factor divided out first, as both apply
+    the same factor to the same e), to each output's largest entry for
+    the filters and placements, and absolutely for the trace residuals."""
+    mag = rsf_magnitude(kernels, name, mode, args, kw)
+    rel = ab = 0.0
+    for i, (g, r) in enumerate(zip(rsf_outputs(out), rsf_outputs(ref))):
+        if not g.is_floating_point():
+            if not bool((g == r).all()):
+                return float("inf"), float("inf")
+            continue
+        fin = g.isfinite()
+        same = (g == r) | (g.isnan() & r.isnan())
+        if not bool(((fin == r.isfinite()) & (fin | same)).all()):
+            return float("inf"), float("inf")
+        diff = (g - r).abs().where(fin, 0.0)
+        if mode == "scale":  # divide out d where d > 0 (both outputs are 0 elsewhere)
+            d = kernels.rsf_inv_sqrt(kw["e"], kw["floor"])[:, None, :]
+            diff = diff / d.clamp_min(1e-300) * (d > 0) + diff * (d <= 0)
+        d = float(diff.max()) if diff.numel() else 0.0
+        if name == "rsf_frames" and mode == "stats" and i == 2:
+            scale = 1.0
+        elif mag is not None:
+            scale = max(mag, 1e-300)
+        else:
+            scale = max(finite_max(r.abs()), 1e-300)
+        rel, ab = max(rel, d / scale), max(ab, d)
+    return rel, ab
+
+
+def rsf_tolerance(name, mode):
+    return RSF_TRACE_ATOL if (name, mode) == ("rsf_frames", "stats") else KERNEL_RTOL
+
+
+def _rsf_rows(sizes, side, L):
+    """Per cut (block rows, complement rows) as host ints."""
+    s = [int(x) for x in sizes.tolist()]
+    return s, [L - x for x in s]
+
+
+def rsf_cost(name, mode, args, kw, out):
+    """(operations, bytes) of one K11 call, counted from its real work: the
+    masked rows and live columns only; each input byte once (the shared
+    C once, as its largest masked block), each output byte once."""
+    if name == "rsf_apply":
+        C, X, sizes = args
+        L, n = C.shape[0], X.shape[-1]
+        s, c = _rsf_rows(sizes, kw["side"], L)
+        ins, outs = {"capp": (s, s), "mtapp": (s, c), "mapp": (c, s)}[mode]
+        ncol = kw.get("ncol")
+        neff = [min(int(v), n) for v in ncol.tolist()] if ncol is not None else [n] * len(s)
+        flops = sum(2.0 * i * o * e for i, o, e in zip(ins, outs, neff))
+        x_bytes = (max(ins) * n if X.dim() == 2 else sum(i * e for i, e in zip(ins, neff))) * 8
+        return flops, max(i * o for i, o in zip(ins, outs)) * 8 + x_bytes + nbytes(out)
+    if name == "rsf_tsprod":
+        A, B, sizes = args
+        m, L, p = A.shape
+        q = B.shape[-1]
+        s, _c = _rsf_rows(sizes, kw["side"], L)
+        if mode == "gram":
+            ncol = kw.get("ncol")
+            pe = [min(int(v), p) for v in ncol.tolist()] if ncol is not None else [p] * m
+            qe = [min(int(v), q) for v in ncol.tolist()] if ncol is not None else [q] * m
+            return (sum(2.0 * si * a * b for si, a, b in zip(s, pe, qe)),
+                    sum(si * (a + b) for si, a, b in zip(s, pe, qe)) * 8 + nbytes(out))
+        extra = nbytes(kw["Z"]) if mode == "sub" else nbytes(kw["e"]) if mode == "scale" else 0
+        return (sum(2.0 * si * p * q for si in s),
+                sum(s) * p * 8 + nbytes(B) + extra + nbytes(out))
+    if name == "rsf_ritz_select":
+        X, Y, sizes = args
+        s, _c = _rsf_rows(sizes, kw["side"], X.shape[1])
+        r = X.shape[-1]
+        if mode == "shift":
+            return 2.0 * sum(s) * r, sum(s) * r * 8 + nbytes(Y) + nbytes(out)
+        return 4.0 * sum(s) * r, 2 * sum(s) * r * 8 + nbytes(kw["lam"]) + nbytes(out)
+    lam_all = args[0]
+    m, n = lam_all.shape
+    if mode == "stats":
+        return float(m * n * n), nbytes(*args) + nbytes(out)
+    k, nf, _tr, _order, U_all, Yf, info = args[1:]
+    L, rf, kb = U_all.shape[1], Yf.shape[-1], kw["kb"]
+    cols = sum(min(int(a), kb) + min(int(b), rf) for a, b in zip(k.tolist(), nf.tolist()))
+    return 0.0, cols * L * 8 + nbytes(lam_all, k, nf, _tr, _order, info) + nbytes(out)
+
+
+def rsf_library_ms(torch, kernels, name, mode, args, kw):
+    """Milliseconds of torch.bmm computing the K11a/K11b call's product on
+    its dense masked operands (built before the timing), else None."""
+    if name not in ("rsf_apply", "rsf_tsprod"):
+        return None
+    if name == "rsf_apply":
+        C, X, sizes = args
+        L, m = C.shape[0], sizes.shape[0]
+        blk = kernels.rsf_block_mask(sizes, kw["side"], L)
+        mi, mo = {"capp": (blk, blk), "mtapp": (blk, 1 - blk), "mapp": (1 - blk, blk)}[mode]
+        Cm = mo[:, :, None] * C[None] * mi[:, None, :]
+        Xm = X.expand(m, *X.shape[-2:])
+        if kw.get("ncol") is not None:
+            Xm = Xm * (torch.arange(Xm.shape[-1], device=X.device)[None, :]
+                       < kw["ncol"].long()[:, None]).to(X.dtype)[:, None]
+        Xm = Xm.contiguous()
+        return cuda_ms(lambda: torch.bmm(Cm, Xm), 3)
+    A, B, sizes = args
+    if mode == "gram":
+        blk = kernels.rsf_block_mask(sizes, kw["side"], A.shape[1])[:, :, None]
+        At = (blk * A).mT.contiguous()
+        return cuda_ms(lambda: torch.bmm(At, B), 3)
+    return cuda_ms(lambda: torch.bmm(A, B), 3)
+
+
+class RsfRecords:
+    """Per K11 kernel: the worst kernel-twin error and the summed kernel,
+    twin, bound and library milliseconds over the calls it was given."""
+
+    def __init__(self):
+        self.rec = {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                        "flops": 0.0, "bytes": 0.0, "library_ms": None, "calls": 0}
+                    for n in RSF_KERNELS}
+
+    def add(self, torch, kernels, label, name, mode, args, kw, reps=0):
+        """One call of kernel ``name`` against its twin: fails beyond the
+        tolerance; times both (``reps`` CUDA-event repetitions, or the one
+        call itself); returns the kernel's output."""
+        kernel, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
+        if reps:
+            out = kernel(mode, *args, **kw)
+            t_k = cuda_ms(lambda: kernel(mode, *args, **kw), reps)
+            ref = plain(mode, *args, **kw)
+            t_p = cuda_ms(lambda: plain(mode, *args, **kw), reps)
+        else:
+            out, t_k = timed(torch, lambda: kernel(mode, *args, **kw))
+            ref, t_p = timed(torch, lambda: plain(mode, *args, **kw))
+        rel, ab = rsf_err(kernels, name, mode, args, kw, out, ref)
+        if not rel <= rsf_tolerance(name, mode):
+            raise AssertionError(f"{label}: {name} {mode} differs from its twin: rel err "
+                                 f"{rel:.3e} (abs {ab:.3e})")
+        f, b = rsf_cost(name, mode, args, kw, out)
+        lib = rsf_library_ms(torch, kernels, name, mode, args, kw)
+        r = self.rec[name]
+        r["max_abs_err"] = max(r["max_abs_err"], ab)
+        r["ms"] += t_k
+        r["plain_ms"] += t_p
+        r["bound_ms"] += bound_ms(f, b)[0]
+        r["flops"] += f
+        r["bytes"] += b
+        r["calls"] += 1
+        if lib is not None:
+            r["library_ms"] = (r["library_ms"] or 0.0) + lib
+        return out, (rel, ab, t_k, t_p, bound_ms(f, b), lib)
+
+    def records(self):
+        out = {}
+        for n, r in self.rec.items():
+            out[n] = {"max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                      "bound_ms": r["bound_ms"],
+                      "bound_by": bound_ms(r["flops"], r["bytes"])[1],
+                      "library_ms": r["library_ms"]}
+        return out
+
+    def report(self, label):
+        for n, r in self.rec.items():
+            lib = (f", torch.bmm on the dense masked operands {r['library_ms']:.3f} ms"
+                   if r["library_ms"] is not None else "")
+            print(f"{label}: {n} over {r['calls']} calls: kernel {r['ms']:.3f} ms, plain "
+                  f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+                  f"({bound_ms(r['flops'], r['bytes'])[1]}; {r['flops']:.3e} operations, "
+                  f"{r['bytes']:.3e} bytes){lib}; max abs err {r['max_abs_err']:.3e}",
+                  flush=True)
+
+
+def phase_rsf_kernels(torch, kernels, testing):
+    """Phase 3f: every mode of K11a-d against its twin on seeded inputs at
+    the main path's shapes (testing.random_rsf_cases: L=1024, m=32, r=64,
+    rf=512, kb=96, both sides; an empty, a tiny and an L/2 block; a lane
+    _corth drops, a band keeping no column, the filled sketch's column mask
+    and pad, rank ties and sentinels), each timed over 3 launches against
+    its twin, with its bound and, for K11a/K11b, torch.bmm on the dense
+    masked operands.  Returns the worst absolute error per kernel."""
+    dev = torch.device("cuda")
+    recs = RsfRecords()
+    for side in ("L", "R"):
+        for name, mode, args, kw in testing.random_rsf_cases(17, L=1024, m=32, r=64, rf=512,
+                                                             kb=96, side=side):
+            a = [torch.as_tensor(x, device=dev) for x in args]
+            k = {key: torch.as_tensor(v, device=dev) if hasattr(v, "dtype") else v
+                 for key, v in kw.items()}
+            shape = "x".join(str(s) for s in a[1 if name != "rsf_frames" else 0].shape)
+            _, (rel, ab, t_k, t_p, (t_b, by), lib) = recs.add(torch, kernels, "phase 3f", name,
+                                                              mode, a, k, reps=3)
+            lib_s = f", torch.bmm {lib:.3f} ms" if lib is not None else ""
+            print(f"phase 3f: {name} {mode} side {side} ({shape}): rel err {rel:.3e}; kernel "
+                  f"{t_k:.3f} ms, plain {t_p:.3f} ms, bound {t_b:.4f} ms ({by}){lib_s}",
+                  flush=True)
+    recs.report("phase 3f")
+    return {n: r["max_abs_err"] for n, r in recs.rec.items()}
+
+
+def with_rsf(mode, fn):
+    return with_env("TEMFPY_TORCH_RSF", mode, fn)
+
+
+def phase_rsf_parity(torch, np, slater, kernels, spectral):
+    """Phase 4f: ``slater.H_to_MPS`` with the randomized frontend forced on
+    (TEMFPY_TORCH_RSF=1) on phase 4's W=4, L=64 cylinder (chi=128) on the
+    card (K11a-d launched) and on the CPU (twins): 1 - fidelity, squared
+    Schmidt values and charges to PARITY_TOL, the cuts rerouted; and the
+    card's RSF state against its default exact state: chi=128 does not bind
+    here, so the two agree to PARITY_TOL too."""
+    H = cylinder(4, 64, t2=-0.2)
+    tp = {"chi_max": 128}
+    for n in RSF_KERNELS:
+        getattr(kernels, n).launches = 0
+    t0 = time.perf_counter()
+    gpu = with_rsf("1", lambda: slater.H_to_MPS(H, tp, device="cuda"))
+    torch.cuda.synchronize()
+    t_gpu = time.perf_counter() - t0
+    launches = {n: getattr(kernels, n).launches for n in RSF_KERNELS}
+    stats = spectral.rsf_stats()
+    cpu = with_rsf("1", lambda: slater.H_to_MPS(H, tp, device="cpu"))
+    exact = slater.H_to_MPS(H, tp, device="cuda")
+    fid = lambda a, b: abs(a.overlap(b)) / np.sqrt(a.norm_squared() * b.norm_squared())  # noqa
+    res = {}
+    for name, other in (("cpu", cpu), ("exact", exact)):
+        d_sv, d_w = spectra_diff(np, gpu, other)
+        res[name] = (1 - fid(gpu, other), d_w)
+    print(f"phase 4f: W=4 L=64 chi=128 RSF forced on, launches {launches}, cuts {stats}; card "
+          f"{t_gpu:.2f} s; card vs cpu 1 - fidelity {res['cpu'][0]:.3e}, max squared-Schmidt "
+          f"diff {res['cpu'][1]:.3e}; card RSF vs card exact 1 - fidelity "
+          f"{res['exact'][0]:.3e}, diff {res['exact'][1]:.3e}; charges identical", flush=True)
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"phase 4f: a K11 kernel was not launched: {launches}")
+    for name, (inf, d_w) in res.items():
+        if not (inf <= PARITY_TOL and d_w <= PARITY_TOL):
+            raise AssertionError(f"phase 4f: card RSF vs {name}: 1 - fidelity {inf:.3e}, "
+                                 f"squared Schmidt values {d_w:.3e} apart (> {PARITY_TOL})")
+
+
+def rsf_hold_chunks(torch, kernels, spectral, C, chunks, label):
+    """Every K11 call of main-path chunks, held against its twin and timed
+    (one launch each): ``chunks`` lists (side, block sizes) of chunks the
+    conversion runs, each run through ``rsf_sweep_frames`` with the kernels
+    wrapped.  Prints the cuts each chunk keeps (its other cuts go to the
+    exact frontend, so their kernel outputs are dropped) and raises if no
+    chunk keeps one."""
+    recs = RsfRecords()
+    saved = spectral._KERNEL_OPS
+
+    def wrap(name):
+        def f(mode, *args, **kw):
+            return recs.add(torch, kernels, label, name, mode, args, kw)[0]
+        return f
+
+    kept = []
+    spectral._KERNEL_OPS = tuple(wrap(n) for n in RSF_KERNELS)
+    try:
+        for side, sizes in chunks:
+            fallback = spectral.rsf_sweep_frames(C, sizes, side, 0.0)[3]
+            kept.append(len(sizes) - len(fallback))
+    finally:
+        spectral._KERNEL_OPS = saved
+    print(f"{label}: held chunks (side, sizes) -> cuts kept: "
+          f"{ {(side, f'{sz[0]}..{sz[-1]}'): k for (side, sz), k in zip(chunks, kept)} }",
+          flush=True)
+    if not any(kept):
+        raise AssertionError(f"{label}: no held chunk keeps a cut")
+    recs.report(label)
+    return recs.records()
+
+
+def rsf_memory(torch, spectral, C, sizes, side, label):
+    """Where phase 9's peak device memory comes from: the peak above what
+    is resident before each call, in MiB, of the frontend alone on one
+    stream block of the conversion (``sizes``): ``rsf_sweep_frames`` (and
+    what its frames hold after it returns, as the conversion keeps them
+    while it reroutes), and ``eigh_blocks`` on the same sizes (the exact
+    frontend's call, which the rerouted cuts take on top of those
+    frames)."""
+    from temfpy_torch.ops.linalg import eigh_blocks
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - base
+        del out
+        return (torch.cuda.max_memory_allocated() - base) / 2**20, held / 2**20
+
+    p_sweep, held = peak(lambda: spectral.rsf_sweep_frames(C, sizes, side, 0.0))
+    p_eigh, _ = peak(lambda: eigh_blocks(C, sizes, side, chunk=len(sizes)))
+    print(f"{label}: peak device memory above the resident, one stream block of "
+          f"{len(sizes)} cuts (side {side}, sizes {sizes[0]}..{sizes[-1]}): rsf_sweep_frames "
+          f"{p_sweep:.1f} MiB ({held:.1f} MiB held by its frames after it returns), "
+          f"eigh_blocks on the same sizes {p_eigh:.1f} MiB", flush=True)
+
+
+def phase_rsf_slice(torch, np, slater, fw, kernels, profiling, spectral, ph7):
+    """Phase 9: the randomized frontend at full width, ``slater.H_to_MPS`` on
+    bench config 1's W=8 cylinder at L=1024, chi=512, float64 with
+    TEMFPY_TORCH_RSF=1, through :func:`slater_slice` (one conversion with
+    the launches of K11a-d beside K1/K2 counted from 0 and the stage
+    profile with the rsf/* stages, phase 7's checks with SLICE_BOUNDS
+    without the canonical_form_finite round (phase 7 runs it at this
+    shape); K1/K2 are held in phase 7 on the same shapes; the device
+    profile covers one stream block, :func:`stream_block`); the cuts
+    rerouted; every K11 call of three main-path chunks held against its
+    twin: the first chunk of each side (block sizes 511..480 right and left
+    of the centre, whose cuts the frontend sends back) and the first chunk
+    of the left side's edge block (sizes 63..32, whose cuts it keeps); the
+    state against phase 7's exact states ``ph7``: bench config 1 within
+    CLEAN_FW_TOL (ties at the chi cut), and the 1e-3-disordered twin with
+    the same kept counts on every bond and 1 - fidelity within
+    FW_EXACT_TOL; and both frontends' wall time and eigh_batch stage."""
+    H = cylinder(8, 1024)
+    L = H.shape[0]
+    C = slater.correlation_matrix(H, device="cuda")[0]
+    c = L // 2
+    m = spectral.RSF_CHUNK
+    chunks = [("R", [L - x for x in range(c + 1, c + 1 + m)]),
+              ("L", list(range(c - 1, c - 1 - m, -1))), ("L", list(range(63, 63 - m, -1)))]
+
+    window = stream_block(slater, H, 512)
+
+    def block():
+        """:func:`stream_block` through the randomized frontend; the cut
+        counts stay the counted conversion's."""
+        counts = spectral.rsf_stats()
+        out = window()
+        spectral.reset_rsf_stats()
+        spectral._STATS.update(counts)
+        return out
+
+    counted = ("det_fill", "site_overlap_schur", "site_overlap_schur_gmem") + RSF_KERNELS
+    res = with_rsf("1", lambda: slater_slice(
+        torch, np, slater, fw, kernels, profiling, H, 512, "phase 9", counted,
+        bounds=SLICE_BOUNDS, hold_fill=False, profile=block, canon=False, once=True))
+    stats = spectral.rsf_stats()
+    print(f"phase 9: randomized frontend cuts {stats} (rerouted to the exact frontend: "
+          f"{stats['rerouted']})", flush=True)
+    rec = with_rsf("1", lambda: rsf_hold_chunks(torch, kernels, spectral, C, chunks,
+                                                "phase 9"))
+    rsf_memory(torch, spectral, C, [L - x for x in range(c + 1, c + 65)], "R", "phase 9")
+    del C
+    clean = compare_frontends(np, res["raw"], ph7["exact"])
+    Hd = H + np.diag(1e-3 * np.random.default_rng(3).normal(size=L))
+    t0 = time.perf_counter()
+    rsf_d = with_rsf("1", lambda: slater.H_to_MPS(Hd, {"chi_max": 512}, device="cuda"))
+    torch.cuda.synchronize()
+    t_d = time.perf_counter() - t0
+    stats_d = spectral.rsf_stats()
+    dis = compare_frontends(np, rsf_d, ph7["exact_dis"])
+    del rsf_d
+    for name, cmp in (("bench config 1", clean), ("with 1e-3 disorder", dis)):
+        print(f"phase 9: RSF vs phase 7's exact state, {name}: 1 - fidelity "
+              f"{cmp['infidelity']:.3e}; kept counts differ on bonds {cmp['chi_bonds']}; "
+              f"elsewhere max squared-Schmidt diff {cmp['d_w']:.3e}, charges "
+              f"{'equal' if cmp['charges'] else 'DIFFER'}", flush=True)
+    eig_rsf = res["prof"].seconds.get("eigh_batch", 0.0)
+    print(f"phase 9: conversions (stages synchronised): randomized frontend, the first at "
+          f"this size {res['warm']:.3f} s (eigh_batch {eig_rsf:.3f} s, of it rsf/eigh "
+          f"{res['prof'].seconds.get('rsf/eigh', 0.0):.3f} s), exact frontend (phase 7) "
+          f"{ph7['t_exact']:.3f} s (eigh_batch {ph7['eigh_exact']:.3f} s); disordered RSF "
+          f"conversion {t_d:.2f} s, cuts {stats_d}", flush=True)
+    failures = []
+    if stats["cuts"] != L or stats_d["cuts"] != L:
+        failures.append(f"the frontend did not take every cut: {stats}, {stats_d}")
+    if not clean["infidelity"] <= CLEAN_FW_TOL:
+        failures.append(f"bench config 1: 1 - fidelity {clean['infidelity']:.3e} > "
+                        f"{CLEAN_FW_TOL}")
+    if dis["chi_bonds"] or not dis["infidelity"] <= FW_EXACT_TOL:
+        failures.append(f"disordered: kept counts differ on {dis['chi_bonds']} or 1 - fidelity "
+                        f"{dis['infidelity']:.3e} > {FW_EXACT_TOL}")
+    if not (dis["d_w"] <= FW_SPECTRA_TOL and dis["charges"]):
+        failures.append("disordered: spectra or charges differ between the frontends")
+    if failures:
+        raise AssertionError("phase 9: " + "; ".join(failures))
+    return res["launches"], rec
+
+
 def main() -> int:
     if not (ROOT / "temfpy_torch" / "__init__.py").is_file():
         print("chip_smoke: the temfpy_torch package is not beside this script",
@@ -2185,7 +2677,7 @@ def main() -> int:
     print(smi, flush=True)
 
     from temfpy_torch import pfaffian, profiling, slater, testing
-    from temfpy_torch.ops import _build, fw, kernels
+    from temfpy_torch.ops import _build, fw, kernels, spectral
 
     testing.TEST_ACTION = "pass"
 
@@ -2213,6 +2705,8 @@ def main() -> int:
     elapsed("phase 3d")
     launches, rec = phase_index_row_ops(torch, np, kernels, testing)
     elapsed("phase 3e")
+    worst_rsf = phase_rsf_kernels(torch, kernels, testing)
+    elapsed("phase 3f")
     phase_parity(torch, np, slater)
     phase_pf_parity(torch, np, pfaffian, testing)
     elapsed("phases 4, 4b")
@@ -2224,6 +2718,8 @@ def main() -> int:
     elapsed("phase 4d")
     rows_4e = phase_swap_parity(torch, np, slater, kernels)
     elapsed("phase 4e")
+    phase_rsf_parity(torch, np, slater, kernels, spectral)
+    elapsed("phase 4f")
     direct = phase_full(torch, np, slater, fw, kernels, profiling)
     launches.update(direct["launches"])
     rec.update(direct["rec"])
@@ -2246,14 +2742,22 @@ def main() -> int:
     elapsed("phase 6")
     # phase 7 reads its own counts; det_fill and site_overlap_schur keep
     # phase 5's (their slice), their errors take the worst of both
-    n7, r7 = phase_slice(torch, np, slater, fw, kernels, profiling)
+    n7, r7, ph7 = phase_slice(torch, np, slater, fw, kernels, profiling)
     elapsed("phase 7")
     for k in ("site_overlap_schur_gmem", "fw_frame_slab"):
         launches[k] = n7[k]
         rec[k] = r7[k]
     for k in ("det_fill", "site_overlap_schur"):
         rec[k]["max_abs_err"] = max(rec[k]["max_abs_err"], r7[k]["max_abs_err"])
-    for k, ab in list(worst.items()) + list(worst_swap.items()):
+    # phase 9 reads its own counts for K11a-d and compares with phase 7's
+    # exact states
+    n9, r9 = phase_rsf_slice(torch, np, slater, fw, kernels, profiling, spectral, ph7)
+    del ph7
+    elapsed("phase 9")
+    for k in RSF_KERNELS:
+        launches[k] = n9[k]
+        rec[k] = r9[k]
+    for k, ab in list(worst.items()) + list(worst_swap.items()) + list(worst_rsf.items()):
         rec[k]["max_abs_err"] = max(rec[k]["max_abs_err"], ab)
 
     meta = {
@@ -2279,6 +2783,8 @@ def main() -> int:
                      "temfpy_tpu/ops/linalg.py:540"),
         "pf_gather": ("temfpy_torch/csrc/pf_gather.cu",
                       "temfpy_tpu/ops/pfaffian.py:502"),
+        **{k: (f"temfpy_torch/csrc/{k}.cu", "temfpy_tpu/ops/spectral.py:153")
+           for k in RSF_KERNELS},
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     out = [{"name": k, "route": "cuda", "source": src, "replaces": rep,

@@ -197,3 +197,75 @@ __device__ __forceinline__ T identity_ext(const T* M, int m, int a, int b) {
     if (a < m && b < m) return M[(long long)a * m + b];
     return (a == b) ? Num<T>::one() : Num<T>::zero();
 }
+
+// ---- the randomized spectral frontend (rsf_*.cu) ----
+
+// Rows [lo, hi) of cut i's block: the leading s rows (side L) or the
+// trailing s rows (side R) of an L-row operand; the complement is the rest.
+__device__ __forceinline__ void rsf_block_rows(int L, int s, int right, int* lo, int* hi) {
+    *lo = right ? L - s : 0;
+    *hi = right ? L : s;
+}
+
+// A 64 x 64 float64 output tile of a product, 256 threads as 16 x 16:
+// thread (ty, tx) = (tid / 16, tid % 16) keeps the sums of tile rows
+// ty + 16 i and tile columns tx + 16 j (i, j < 4) in acc.  The depth k runs
+// over [k_begin, k_end) in steps of 16 through shared memory.  A holds the
+// tile's rows, row-major (element (r, k) at A[r * lda + k]) or depth-major
+// (at A[k * lda + r]); B is depth-major (element (k, c) at B[k * ldb + c]).
+// Rows r >= a_rows and columns c >= b_cols read as zero.  Every thread of
+// the block calls it (it synchronises); CUDA-core FMAs, no tensor cores.
+constexpr int kTile = 64;
+constexpr int kTileDepth = 16;
+constexpr int kTileThreads = 256;
+
+struct TileSmem {
+    double A[kTile][kTileDepth + 1];
+    double B[kTileDepth][kTile];
+};
+
+template <bool A_DEPTH_MAJOR>
+__device__ __forceinline__ void tile_accumulate(double (&acc)[4][4], const double* __restrict__ A,
+                                                long long lda, int a_rows,
+                                                const double* __restrict__ B, long long ldb,
+                                                int b_cols, int k_begin, int k_end,
+                                                TileSmem& s) {
+    const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+    for (int k0 = k_begin; k0 < k_end; k0 += kTileDepth) {
+        for (int e = tid; e < kTile * kTileDepth; e += kTileThreads) {
+            // consecutive threads read consecutive addresses of A
+            const int r = A_DEPTH_MAJOR ? e % kTile : e / kTileDepth;
+            const int kk = A_DEPTH_MAJOR ? e / kTile : e % kTileDepth;
+            const int k = k0 + kk;
+            double v = 0.0;
+            if (k < k_end && r < a_rows)
+                v = A_DEPTH_MAJOR ? A[(long long)k * lda + r] : A[(long long)r * lda + k];
+            s.A[r][kk] = v;
+        }
+        for (int e = tid; e < kTileDepth * kTile; e += kTileThreads) {
+            const int kk = e / kTile, c = e % kTile, k = k0 + kk;
+            s.B[kk][c] = (k < k_end && c < b_cols) ? B[(long long)k * ldb + c] : 0.0;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int kk = 0; kk < kTileDepth; ++kk) {
+            double a[4], b[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) a[i] = s.A[ty + 16 * i][kk];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) b[j] = s.B[kk][tx + 16 * j];
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int j = 0; j < 4; ++j) acc[i][j] = fma(a[i], b[j], acc[i][j]);
+        }
+        __syncthreads();
+    }
+}
+
+__device__ __forceinline__ void tile_zero(double (&acc)[4][4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.0;
+}

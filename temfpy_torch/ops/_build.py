@@ -40,6 +40,7 @@ existing library or not built)."""
 
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
+_d = ctypes.c_double
 _SIGNATURES = {
     # dtype, M, det_always, occ_b, occ_k, pr, pc, tab0, tab1, tab2, slot,
     # out, G, m, w, R_b, K_b, P_b, n0, n1, n2, sel, D0p1, D1, D2, stream
@@ -70,6 +71,22 @@ _SIGNATURES = {
     "tf_swap_fill": [_i] + [_vp] * 22 + [_i] * 17 + [_vp],
     # dtype, N, bra_idx, ket_idx, out, m, nb, nk, kb, kk, stream
     "tf_pf_gather": [_i] + [_vp] * 4 + [_i] * 5 + [_vp],
+    # C, X, x_shared, sizes, ncol, out, m, L, n, right, mode, stream
+    "tf_rsf_apply": [_vp, _vp, _i, _vp, _vp, _vp] + [_i] * 5 + [_vp],
+    # A, B, sizes, ncol, G, m, L, p, q, right, stream
+    "tf_rsf_gram": [_vp] * 5 + [_i] * 5 + [_vp],
+    # A, S, Z, e, sizes, out, floor, m, L, p, q, right, mode, stream
+    "tf_rsf_combine": [_vp] * 6 + [_d] + [_i] * 6 + [_vp],
+    # U, T, sizes, big, m, L, r, right, stream
+    "tf_rsf_ritz_shift": [_vp] * 3 + [_d] + [_i] * 4 + [_vp],
+    # V, CV, lam, sizes, Vk, lam_out, lo2, hi_ext, res_tol, sentinel, m, L, r,
+    # right, stream
+    "tf_rsf_ritz_select": [_vp] * 6 + [_d] * 4 + [_i] * 4 + [_vp],
+    # lam, tr, k, nf, tr_res, order, sentinel, m, n, stream
+    "tf_rsf_frames_stats": [_vp] * 6 + [_d] + [_i] * 2 + [_vp],
+    # U_all, Yf, lam, k, nf, tr_res, order, slab, packed, sentinel, m, L, n,
+    # rf, kb, Wb, stream
+    "tf_rsf_frames_place": [_vp] * 10 + [_d] + [_i] * 6 + [_vp],
 }
 
 

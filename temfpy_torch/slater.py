@@ -10,7 +10,12 @@ package's docstrings do.  The path:
 2. Per cut, the eigendecomposition of the leading or trailing block of C,
    as slabs of one batched padded ``eigh``
    (:func:`temfpy_torch.ops.linalg.eigh_blocks`), or, for a real C where
-   :func:`temfpy_torch.ops.fw.use_fw` says so, the Fishman-White frontend
+   :func:`temfpy_torch.ops.spectral.use_rsf` says so, the randomized
+   frontend (:func:`temfpy_torch.ops.spectral.rsf_sweep_frames`: banded
+   subspace iteration on the resident C through the ``rsf_*`` kernels,
+   compact frames; the cuts its self-check sends back take
+   ``eigh_blocks``), or else, where :func:`temfpy_torch.ops.fw.use_fw`
+   says so, the Fishman-White frontend
    (:func:`temfpy_torch.ops.fw.fw_frames`: one host sweep, compact frames
    built on the device by the ``fw_frame_slab`` kernel); then the Schmidt
    modes (:class:`SchmidtModes`) and the enumeration of the chi leading
@@ -61,11 +66,12 @@ powers of two, as the direct plans do) and the per-class dispatch
 ``dispatch_fill``.  Not yet ported: the single-site API
 (``MPSTensorData.from_schmidt_vectors``, ``to_dense_tensor``,
 ``dispatch_fill``; the iMPS slice needs it, and it runs only kernels the
-port has), the randomized frontend, and ``C_to_iMPS``/``H_to_iMPS``.
+port has) and ``C_to_iMPS``/``H_to_iMPS``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import threading
@@ -83,6 +89,7 @@ from .mps import MPS, FermionSite
 from .ops.fw import fw_frames, use_fw
 from .ops.kernels import det_fill, det_rows, site_overlap_schur, swap_fill, swap_tables
 from .ops.linalg import block_svd, eigh_blocks
+from .ops.spectral import reset_rsf_stats, rsf_sweep_frames, use_rsf
 from .schmidt_utils import lowest_sums, to_stopping_condition
 from .testing import assert_allclose, check_schmidt_decomposition
 from .utils import HT, n_slice, normalize_SV
@@ -180,8 +187,8 @@ class SchmidtModes:
     coordinates), plus a host map from the canonical column order (filled,
     entangled desc, empty for L; empty, entangled desc, filled for R) to
     full ascending eigencolumn indices.  A full frame (W = L, the exact
-    frontend) holds every eigencolumn; a compact frame (the Fishman-White
-    frontend) holds only the occupied ones, and ``col0L``/``col0R`` give the
+    frontend) holds every eigencolumn; a compact frame (the randomized and
+    the Fishman-White frontends) holds only the occupied ones, and ``col0L``/``col0R`` give the
     full index of its column 0 (0 for full frames).  ``vL``/``vR``
     materialise the reference's canonical (n, n) matrices on demand, with
     the dropped empty columns (never occupied by any Schmidt vector) as
@@ -1387,29 +1394,47 @@ def spinful_correlation_matrix(C, ph: bool = True):
     return C2
 
 
+def _exact_frames(C, sizes, which, chunk, e_list, col0_list, frame_list, todo):
+    """Full frames of the exact device frontend (one batched eigh) for the
+    cuts ``todo``, written into the three lists."""
+    e_all, v_all = eigh_blocks(C, [sizes[j] for j in todo], which, chunk=chunk)
+    e_host = e_all.cpu().numpy()
+    for t, j in enumerate(todo):
+        e_list[j], col0_list[j], frame_list[j] = e_host[t, : sizes[j]], 0, v_all[t]
+
+
 def _schmidt_vectors_batched(C: torch.Tensor, cuts, which: str, trunc_par,
                              diag_tol: float, chunk: int, n_fermion: int, C_host=None):
-    """Schmidt vectors for many cuts; ``which`` is "L" or "R".  With a host
-    copy ``C_host`` of C, the Fishman-White frontend builds the frames
-    (:func:`temfpy_torch.ops.fw.fw_frames`); without one, or where its
-    sweep fails (gapless C), one batched eigh on C's device does.  Returns
-    the SchmidtVectors per cut, in order."""
+    """Schmidt vectors for many cuts; ``which`` is "L" or "R".  For a real C
+    where :func:`temfpy_torch.ops.spectral.use_rsf` says so, the randomized
+    frontend builds the frames on C's device
+    (:func:`temfpy_torch.ops.spectral.rsf_sweep_frames`), and the cuts it
+    sends back take the exact frontend (its self-check, counted in
+    ``spectral.rsf_stats``).  Else, with a host copy ``C_host`` of C, the
+    Fishman-White frontend does (:func:`temfpy_torch.ops.fw.fw_frames`);
+    without one, or where its sweep fails (gapless C), one batched eigh on
+    C's device.  Returns the SchmidtVectors per cut, in order."""
     trunc_par = to_stopping_condition(trunc_par)
     L = C.shape[0]
     sizes = [x if which == "L" else L - x for x in cuts]
+    n = len(cuts)
+    rsf = use_rsf(C)
     res = None
-    if C_host is not None:
+    if C_host is not None and not rsf:
         with profiling.stage("eigh_batch"):
             res = fw_frames(C_host, sizes, which, trunc_par.svd_min**2, C.device)
     if res is not None:
         e_list, col0_list, frame_list = res
     else:
         with profiling.stage("eigh_batch"):
-            e_all, v_all = eigh_blocks(C, sizes, which, chunk=chunk)
-            e_host = e_all.cpu().numpy()
-        e_list = [e_host[i, : sizes[i]] for i in range(len(cuts))]
-        col0_list = [0] * len(cuts)
-        frame_list = list(v_all)
+            if rsf:
+                e_list, col0_list, frame_list, todo = rsf_sweep_frames(C, sizes, which,
+                                                                       trunc_par.svd_min**2)
+            else:
+                e_list, col0_list, frame_list, todo = [None] * n, [0] * n, [None] * n, range(n)
+            if len(todo):
+                with profiling.stage("rsf/reroute") if rsf else contextlib.nullcontext():
+                    _exact_frames(C, sizes, which, chunk, e_list, col0_list, frame_list, todo)
     out = []
     for i, x in enumerate(cuts):
         kw = ({"eL": e_list[i], "vL_raw": frame_list[i], "col0L": col0_list[i]}
@@ -1433,8 +1458,10 @@ def C_to_MPS(C, trunc_par, *, diag_tol: float = _DIAG_TOL, ortho_center: int | N
     tensor, else ``cuda``; ``device="cpu"`` runs the kernels' twins).  The center cut is
     decomposed first; then each half is streamed in blocks of
     ``eigh_chunk`` cuts: the block's frames (one batched eigh, or the
-    Fishman-White frontend where :func:`temfpy_torch.ops.fw.use_fw` says
-    so), the Schmidt enumeration on the host, and the grouped site kernels.
+    randomized frontend where :func:`temfpy_torch.ops.spectral.use_rsf` says
+    so, else the Fishman-White frontend where
+    :func:`temfpy_torch.ops.fw.use_fw` does), the Schmidt enumeration on the
+    host, and the grouped site kernels.
     The result is in mixed canonical form 'A' * c + 'B' * (L - c) with
     c = ``ortho_center`` (default L // 2).
     """
@@ -1455,9 +1482,11 @@ def C_to_MPS(C, trunc_par, *, diag_tol: float = _DIAG_TOL, ortho_center: int | N
         raise ValueError(f"{unit_cell_width = } does not divide system size {L}")
     n_fermion = int(np.round(float(torch.trace(C).real)))
     _reset_swap_stats()
+    reset_rsf_stats()
     # one host copy of C serves the FW sweep of every block of both
-    # half-streams (the sweep is cached by the matrix's values)
-    C_host = C.cpu().numpy() if use_fw(C, L) else None
+    # half-streams (the sweep is cached by the matrix's values); the
+    # randomized frontend, where on, comes first and needs none
+    C_host = C.cpu().numpy() if use_fw(C, L) and not use_rsf(C) else None
 
     tensors = [None] * L
     lams = [None] * (L + 1)

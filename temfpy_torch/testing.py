@@ -600,3 +600,79 @@ def random_pf_gather_case(seed: int, *, m: int, nb: int, nk: int, kb: int, kk: i
             bra[i, kb - t:] = m + np.arange(t)
             pad = max(pad, t)
     return N, bra, ket, pad
+
+
+def random_rsf_cases(seed: int, *, L: int, m: int, r: int, rf: int, kb: int,
+                     side: str = "L"):
+    """Seeded inputs of every mode of the randomized frontend's kernels
+    (``ops.kernels.rsf_apply``, ``rsf_tsprod``, ``rsf_ritz_select``,
+    ``rsf_frames``), as a list of (kernel name, mode, args, kwargs) with
+    numpy arrays (index arrays int32).
+
+    C is the projector onto L/2 random orthonormal orbitals; the m block
+    sizes run from a tiny block (1) to L/2, and the first cut's is empty;
+    operands are block- (or complement-) supported as in the sweep.  The
+    cases include a lane ``_corth`` drops (a Gram eigenvalue below the
+    floor and a zero column before the shift), a filled sketch with its n_f
+    column mask and identity pad, a band whose window keeps no Ritz column,
+    ties and sentinels in the ranks, a cut with more valid lanes than kb,
+    one with none, and one whose Cholesky failed."""
+    rng = np.random.default_rng(seed)
+    Q = np.linalg.qr(rng.standard_normal((L, L // 2)))[0]
+    C = Q @ Q.T
+    sizes = np.linspace(1, L // 2, m).round().astype(np.int32)
+    sizes[0] = 0
+    rows = np.arange(L)[None, :]
+    blk = (rows < sizes[:, None]) if side == "L" else (rows >= L - sizes[:, None])
+    blk = blk.astype(float)[:, :, None]
+
+    def on(mask, n):
+        return mask * rng.standard_normal((m, L, n))
+
+    kw = {"side": side}
+    nf = rng.integers(0, rf, size=m).astype(np.int32)
+    nf[-1] = rf
+    Y = on(blk, r)
+    Y[:, :, 1] = Y[:, :, 0]  # rank-deficient: one Gram eigenvalue ~ 0
+    G = np.swapaxes(Y, 1, 2) @ Y
+    e, Qg = np.linalg.eigh(G)
+    U = on(blk, r) / np.sqrt(np.maximum(sizes, 1))[:, None, None]
+    U[:, :, 3] = 0.0  # a lane _corth dropped
+    CU = blk * (C @ U)
+    lam = rng.choice([0.3, 2e-3, 0.99, 1e-9, 4e-13, 1e6], size=(m, r))
+    n = 4 * r
+    lam_all = rng.choice([0.2, 0.2, 1e-9, 0.7, 0.9999, 3.0], size=(m, n))
+    lam_all[0] = 3.0
+    lam_all[1, : kb + 4] = 0.4
+    tr = rng.uniform(0, L // 2, size=m)
+    k = (lam_all < 2.0).sum(1).astype(np.int32)
+    order = np.argsort(np.where(lam_all < 2.0, lam_all, 3.0), axis=1, kind="stable").astype(
+        np.int32)
+    tr_res = np.abs(rng.standard_normal(m)) * 1e-12
+    info = np.zeros(m, np.int32)
+    info[2] = 3  # a CholeskyQR2 that failed: the cut's trace residual reads inf
+    Yf = on(blk, rf) * (np.arange(rf)[None, :] < nf[:, None])[:, None, :]
+    cases = [
+        ("rsf_apply", "capp", (C, on(blk, r), sizes), kw),
+        ("rsf_apply", "mtapp", (C, on(blk, r), sizes), kw),
+        ("rsf_apply", "mapp", (C, on(1 - blk, r), sizes), kw),
+        ("rsf_apply", "mapp", (C, rng.standard_normal((L, r)), sizes), kw),
+        ("rsf_apply", "capp", (C, rng.standard_normal((L, rf)), sizes), {**kw, "ncol": nf}),
+        ("rsf_tsprod", "gram", (Y, Y, sizes), kw),
+        ("rsf_tsprod", "gram", (U, on(blk, rf), sizes), kw),
+        ("rsf_tsprod", "gram", (Yf, Yf, sizes), {**kw, "ncol": nf}),
+        ("rsf_tsprod", "sub", (U, rng.standard_normal((m, r, rf)), sizes),
+         {**kw, "Z": on(blk, rf)}),
+        ("rsf_tsprod", "mul", (U, rng.standard_normal((m, r, r)), sizes), kw),
+        ("rsf_tsprod", "scale", (Y, Qg, sizes), {**kw, "e": e, "floor": 1e-2}),
+        ("rsf_ritz_select", "shift", (U, rng.standard_normal((m, r, r)), sizes), kw),
+    ]
+    for lo, hi in ((1e-2, np.inf), (1e-4, 1e-2), (1e-6, 1e-4), (3e-8, 1e-6)):
+        cases.append(("rsf_ritz_select", "select", (U, CU, sizes),
+                      {**kw, "lam": lam, "lo": lo, "hi": hi, "res_tol": 1e-6}))
+    cases += [
+        ("rsf_frames", "stats", (lam_all, tr), {}),
+        ("rsf_frames", "place", (lam_all, k, nf, tr_res, order, on(blk, n), Yf, info),
+         {"kb": kb}),
+    ]
+    return cases

@@ -305,3 +305,66 @@ def test_swap_conversion_on_cuda_matches_cpu(cuda, monkeypatch):
     cpu = slater.H_to_MPS(H, tp, device="cpu")
     f = abs(gpu.overlap(cpu)) / np.sqrt(gpu.norm_squared() * cpu.norm_squared())
     assert f >= 1 - 1e-10
+
+
+def _as_cuda(x, cuda):
+    return torch.as_tensor(x, device=cuda) if isinstance(x, np.ndarray) else x
+
+
+@pytest.mark.parametrize("side", ["L", "R"])
+def test_rsf_kernels_match_twins(cuda, side):
+    """Every mode of K11a-d on seeded inputs (testing.random_rsf_cases: a
+    dropped lane, the filled sketch's column mask and pad, a band keeping
+    nothing, rank ties, a failed Cholesky): integer outputs equal, the
+    non-finite entries of float outputs equal (the failed cut's infinite
+    trace residual), their finite entries within RTOL of the twin's largest
+    finite entry (or of 1 for the trace residuals)."""
+    for name, mode, args, kw in testing.random_rsf_cases(11, L=320, m=7, r=64, rf=128, kb=96,
+                                                         side=side):
+        a = [_as_cuda(x, cuda) for x in args]
+        kwd = {k: _as_cuda(v, cuda) for k, v in kw.items()}
+        kernel, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
+        before = kernel.launches
+        got = kernel(mode, *a, **kwd)
+        assert kernel.launches == before + 1
+        ref = plain(mode, *a, **kwd)
+        got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+        for g, r in zip(got, ref):
+            if g.dtype == torch.int32:
+                assert torch.equal(g, r), (name, mode)
+            else:
+                fin = r.isfinite()
+                assert torch.equal(g.isfinite(), fin) and torch.equal(g[~fin], r[~fin]), \
+                    (name, mode)
+                scale = max(float(r[fin].abs().max()), 1.0)
+                assert float((g - r)[fin].abs().max()) <= RTOL * scale, (name, mode)
+
+
+def test_rsf_conversion_on_cuda_matches_cpu(cuda, monkeypatch):
+    """The randomized frontend forced on (TEMFPY_TORCH_RSF=1): every K11
+    kernel launched on the card, the state equal to the CPU's (twins) and to
+    the card's exact frontend."""
+    from temfpy_torch.ops import spectral
+
+    H = np.zeros((64, 64))
+    for x in range(16):
+        for y in range(4):
+            i = 4 * x + y
+            H[i, 4 * x + (y + 1) % 4] = H[4 * x + (y + 1) % 4, i] = -1.0
+            if x < 15:
+                H[i, i + 4] = H[i + 4, i] = -1.0 if x % 2 == 0 else -0.2
+    H -= 0.05 * np.eye(64) + 1e-4 * np.diag(np.arange(64))
+    tp = {"chi_max": 128}
+    monkeypatch.setenv("TEMFPY_TORCH_RSF", "1")
+    names = ("rsf_apply", "rsf_tsprod", "rsf_ritz_select", "rsf_frames")
+    for n in names:
+        getattr(kernels, n).launches = 0
+    gpu = slater.H_to_MPS(H, tp, device=cuda)
+    assert all(getattr(kernels, n).launches > 0 for n in names)
+    cpu = slater.H_to_MPS(H, tp, device="cpu")
+    monkeypatch.setenv("TEMFPY_TORCH_RSF", "0")
+    exact = slater.H_to_MPS(H, tp, device=cuda)
+    for other in (cpu, exact):
+        f = abs(gpu.overlap(other)) / np.sqrt(gpu.norm_squared() * other.norm_squared())
+        assert f >= 1 - 1e-10
+    assert spectral.rsf_stats()["cuts"] == 0

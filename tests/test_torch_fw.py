@@ -32,6 +32,17 @@ from temfpy_tpu.ops import fw as jfw
 from test_fw import cylinder_H, ground_C
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's CPU twins run many small tensor operations; one intra-op
+    thread keeps them from spinning the pool's idle threads, which under a
+    parallel test run costs far more than it gains."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _fresh(monkeypatch):
     for name in ("FW", "FW_MIN_L", "FW_W0", "FW_WMAX", "FW_TOL", "FW_ATOL", "FW_TTOL",

@@ -20,7 +20,7 @@ def test_port_imports_and_runs_without_jax():
         from temfpy_torch import (config, mps, pfaffian, profiling, schmidt_utils, slater,
                                   testing, utils)
         from temfpy_torch.mps import io
-        from temfpy_torch.ops import _build, fw, kernels, linalg
+        from temfpy_torch.ops import _build, fw, kernels, linalg, spectral
         from temfpy_torch.ops import pfaffian as ops_pfaffian
 
         H = np.diag(-np.ones(7), 1)
@@ -46,6 +46,12 @@ def test_port_imports_and_runs_without_jax():
         assert linalg.batched_det_pairs(M, [[0, 1]], [[1, 0]]).tolist() == [-1.0]
         N = torch.tensor([[0.0, 2.0], [-2.0, 0.0]], dtype=torch.complex128)
         assert complex(ops_pfaffian.batched_pfaffian_gather(N, [[1]], [[0]], 0)[0, 0]) == 2
+        # the randomized frontend forced on, through the twins of its kernels
+        import os
+        os.environ["TEMFPY_TORCH_RSF"] = "1"
+        rsf = slater.H_to_MPS(Hc, {"chi_max": 96}, device="cpu")
+        fid = abs(rsf.overlap(swap)) / np.sqrt(rsf.norm_squared() * swap.norm_squared())
+        assert spectral.rsf_stats()["cuts"] == L and fid > 1 - 1e-10
         bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "temfpy_tpu")))
         assert not bad, bad
         print("ok")
