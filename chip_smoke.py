@@ -33,7 +33,8 @@ Phases, each printing a line; any failure raises and exits non-zero:
    kernel against its twin on the inputs the conversion gave it, and the
    state after ``canonical_form_finite``;
 3c. large-L kernels: ``fw_frame_slab`` at L=1024 (B=64, Wb=512, both sides,
-   every kind of pad, a short last slab), ``site_overlap_schur_gmem``
+   every kind of pad, a short last slab; beside ``torch.bmm``, and a second
+   launch that must return the same bits), ``site_overlap_schur_gmem``
    (mb = 192, 320 in float64, 128 in complex128) and ``bdg_overlap_gmem``
    (nb = 96, 128) against their twins on seeded inputs;
 3d. rank-update and index-row kernels: ``det_rows`` (w = 4-64, paired and
@@ -92,7 +93,12 @@ one main-path group per shape, the least time the card could take for the
 work of those groups (``bound_ms``: the larger of their operations at
 FP64_PEAK and their bytes at HBM_RATE, computed from this run's inputs)
 and the time of one PyTorch call computing the same function
-(``library_ms``, null where none does).  The last line is
+(``library_ms``, null where none does).  Where a record has a library
+call, kernel and library call are timed alike (:func:`cuda_ms`,
+TIMING_REPS launches after a warm one, on the same captured inputs; the
+kernel's one-call time with its wrapper's host work is printed beside);
+the redesigned ``fw_frame_slab`` and ``rsf_tsprod`` must also return the
+same bits from two launches on each held input.  The last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
@@ -209,6 +215,28 @@ def cuda_ms(fn, reps):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+TIMING_REPS = 3
+"""CUDA-event repetitions (after a warm call) of every timed kernel call
+whose time stands beside a library call's in the ``kernels`` line: both
+are timed by :func:`cuda_ms` with these repetitions on the same inputs, so
+back-to-back launches hide the host time of either side alike."""
+
+
+def bitwise_equal(torch, a, b):
+    """Whether two outputs (a tensor or a tuple of them) hold the same bits,
+    NaNs included."""
+    a, b = rsf_outputs(a), rsf_outputs(b)
+    bits = lambda t: t.contiguous().view(torch.int64) if t.is_floating_point() else t  # noqa
+    return len(a) == len(b) and all(x.shape == y.shape and torch.equal(bits(x), bits(y))
+                                    for x, y in zip(a, b))
+
+
+def check_repeatable(torch, label, fn, out):
+    """Raises unless one more call of ``fn`` returns ``out`` bit for bit."""
+    if not bitwise_equal(torch, fn(), out):
+        raise AssertionError(f"{label}: two launches on the same input differ")
 
 
 def rel_err(a, b):
@@ -1289,35 +1317,41 @@ def fw_library_ms(torch, args, kw):
     rows = torch.arange(L, device=VT.device)
     mask = rows[None] < xs[:, None] if kw["side"] == "L" else rows[None] >= (L - xs)[:, None]
     VX = (VT[flat[:, :kb].long()] * mask[:, None, :]).transpose(1, 2).contiguous()
-    torch.bmm(VX, Cmat)
-    return timed(torch, lambda: torch.bmm(VX, Cmat))[1]
+    return cuda_ms(lambda: torch.bmm(VX, Cmat), TIMING_REPS)
 
 
 def fw_captured(torch, kernels, label, slabs):
     """fw_frame_slab against its twin on the slabs a conversion gave it,
-    one per (side, kb, keb, fb, Wb), with times, bound and library call."""
-    ms = plain_ms = worst = lib_ms = bnd = flops = nbyte = 0.0
+    one per (side, kb, keb, fb, Wb), with a second launch that must return
+    the same bits, times (kernel and library call alike by :func:`cuda_ms`,
+    TIMING_REPS; the kernel's one-call time, its wrapper's host work
+    included, printed beside), bound and library call."""
+    ms = ms_1 = plain_ms = worst = lib_ms = bnd = flops = nbyte = 0.0
     for key, (args, kw) in sorted(slabs.items()):
-        out = kernels.fw_frame_slab(*args, **kw)
+        call = lambda: kernels.fw_frame_slab(*args, **kw)  # noqa: E731
+        out = call()
         rel, ab = rel_err(out, kernels.fw_frame_slab_plain(*args, **kw))
         if not (rel <= KERNEL_RTOL and float(out.abs().max()) > 0):
             raise AssertionError(f"{label}: fw_frame_slab {key}: rel err {rel:.3e} > "
                                  f"{KERNEL_RTOL}")
-        out, t_k = timed(torch, lambda: kernels.fw_frame_slab(*args, **kw))
-        _, t_p = timed(torch, lambda: kernels.fw_frame_slab_plain(*args, **kw))
-        f, b = fw_slab_cost(torch, args, kw, out)
+        check_repeatable(torch, f"{label}: fw_frame_slab {key}", call, out)
+        del out
+        t_1 = timed(torch, call)[1]
+        t_k = cuda_ms(call, TIMING_REPS)
+        t_p = cuda_ms(lambda: kernels.fw_frame_slab_plain(*args, **kw), 1)
+        f, b = fw_slab_cost(torch, args, kw, None)
         t_b, _ = bound_ms(f, b)
         t_l = fw_library_ms(torch, args, kw)
-        print(f"{label}: fw_frame_slab (side, kb, keb, fb, Wb)={key}: rel err {rel:.3e}; kernel "
-              f"{t_k:.3f} ms, plain {t_p:.3f} ms, bmm {t_l:.3f} ms, bound {t_b:.4f} ms",
-              flush=True)
-        ms, plain_ms, worst, lib_ms = ms + t_k, plain_ms + t_p, max(worst, ab), lib_ms + t_l
-        bnd, flops, nbyte = bnd + t_b, flops + f, nbyte + b
+        print(f"{label}: fw_frame_slab (side, kb, keb, fb, Wb)={key}: rel err {rel:.3e}, "
+              f"repeatable; kernel {t_k:.3f} ms (one call {t_1:.3f} ms), plain {t_p:.3f} ms, "
+              f"bmm {t_l:.3f} ms, bound {t_b:.4f} ms", flush=True)
+        ms, ms_1, plain_ms, worst = ms + t_k, ms_1 + t_1, plain_ms + t_p, max(worst, ab)
+        lib_ms, bnd, flops, nbyte = lib_ms + t_l, bnd + t_b, flops + f, nbyte + b
     by = bound_ms(flops, nbyte)[1]
-    print(f"{label}: fw_frame_slab on {len(slabs)} main-path slabs: kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms, bound {bnd:.4f} ms ({by}; {flops:.3e} operations, {nbyte:.3e} "
-          f"bytes), torch.bmm of the pre-gathered masked VX with Cmat {lib_ms:.3f} ms",
-          flush=True)
+    print(f"{label}: fw_frame_slab on {len(slabs)} main-path slabs: kernel {ms:.3f} ms (one "
+          f"call each {ms_1:.3f} ms), plain {plain_ms:.3f} ms, bound {bnd:.4f} ms ({by}; "
+          f"{flops:.3e} operations, {nbyte:.3e} bytes), torch.bmm of the pre-gathered masked VX "
+          f"with Cmat {lib_ms:.3f} ms", flush=True)
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
             "bound_by": by, "library_ms": lib_ms}
 
@@ -1336,15 +1370,21 @@ def phase_fw_kernels(torch, kernels, testing):
             kb + keb, L=L, B=B, kb=kb, keb=keb, fb=fb, Wb=Wb)]
         for side in ("L", "R"):
             kw = {"side": side, "L": L, "kb": kb, "fb": fb, "Wb": Wb}
-            out = kernels.fw_frame_slab(*a, **kw)
+            call = lambda: kernels.fw_frame_slab(*a, **kw)  # noqa: E731
+            out = call()
             rel, ab = rel_err(out, kernels.fw_frame_slab_plain(*a, **kw))
             if not (rel <= KERNEL_RTOL and float(out.abs().max()) > 0):
                 raise AssertionError(f"fw_frame_slab kb={kb} keb={keb} {side}: rel err "
                                      f"{rel:.3e} > {KERNEL_RTOL}")
-            t_k = cuda_ms(lambda: kernels.fw_frame_slab(*a, **kw), 3)
+            check_repeatable(torch, f"phase 3c: fw_frame_slab kb={kb} keb={keb} {side}", call,
+                             out)
+            del out
+            t_k = cuda_ms(call, TIMING_REPS)
             t_p = cuda_ms(lambda: kernels.fw_frame_slab_plain(*a, **kw), 1)
+            t_l = fw_library_ms(torch, a, kw)
             print(f"phase 3c: fw_frame_slab L={L} B={B} kb={kb} keb={keb} fb={fb} Wb={Wb} {side}: "
-                  f"rel err {rel:.3e}; kernel {t_k:.3f} ms, plain {t_p:.3f} ms", flush=True)
+                  f"rel err {rel:.3e}, repeatable; kernel {t_k:.3f} ms, plain {t_p:.3f} ms, "
+                  f"torch.bmm {t_l:.3f} ms", flush=True)
             worst["fw_frame_slab"] = max(worst["fw_frame_slab"], ab)
     # K2 global-memory kernel: mb = 192 and 320 (float64), 128 (complex128)
     for kb, sb, dt in ((160, 32, "float64"), (288, 32, "float64"), (96, 32, "complex128")):
@@ -2389,23 +2429,26 @@ class RsfRecords:
     twin, bound and library milliseconds over the calls it was given."""
 
     def __init__(self):
-        self.rec = {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                        "flops": 0.0, "bytes": 0.0, "library_ms": None, "calls": 0}
+        self.rec = {n: {"max_abs_err": 0.0, "ms": 0.0, "ms_1call": 0.0, "plain_ms": 0.0,
+                        "bound_ms": 0.0, "flops": 0.0, "bytes": 0.0, "library_ms": None,
+                        "calls": 0}
                     for n in RSF_KERNELS}
 
-    def add(self, torch, kernels, label, name, mode, args, kw, reps=0):
+    def add(self, torch, kernels, label, name, mode, args, kw):
         """One call of kernel ``name`` against its twin: fails beyond the
-        tolerance; times both (``reps`` CUDA-event repetitions, or the one
-        call itself); returns the kernel's output."""
+        tolerance, and for the redesigned ``rsf_tsprod`` unless a second
+        launch returns the same bits; times kernel, twin and library call
+        alike (:func:`cuda_ms`, TIMING_REPS) and the kernel's one call
+        with its wrapper's host work (:func:`timed`); returns the kernel's
+        output."""
         kernel, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
-        if reps:
-            out = kernel(mode, *args, **kw)
-            t_k = cuda_ms(lambda: kernel(mode, *args, **kw), reps)
-            ref = plain(mode, *args, **kw)
-            t_p = cuda_ms(lambda: plain(mode, *args, **kw), reps)
-        else:
-            out, t_k = timed(torch, lambda: kernel(mode, *args, **kw))
-            ref, t_p = timed(torch, lambda: plain(mode, *args, **kw))
+        call = lambda: kernel(mode, *args, **kw)  # noqa: E731
+        out, t_1 = timed(torch, call)
+        if name == "rsf_tsprod":
+            check_repeatable(torch, f"{label}: {name} {mode}", call, out)
+        t_k = cuda_ms(call, TIMING_REPS)
+        ref = plain(mode, *args, **kw)
+        t_p = cuda_ms(lambda: plain(mode, *args, **kw), TIMING_REPS)
         rel, ab = rsf_err(kernels, name, mode, args, kw, out, ref)
         if not rel <= rsf_tolerance(name, mode):
             raise AssertionError(f"{label}: {name} {mode} differs from its twin: rel err "
@@ -2415,6 +2458,7 @@ class RsfRecords:
         r = self.rec[name]
         r["max_abs_err"] = max(r["max_abs_err"], ab)
         r["ms"] += t_k
+        r["ms_1call"] += t_1
         r["plain_ms"] += t_p
         r["bound_ms"] += bound_ms(f, b)[0]
         r["flops"] += f
@@ -2422,7 +2466,7 @@ class RsfRecords:
         r["calls"] += 1
         if lib is not None:
             r["library_ms"] = (r["library_ms"] or 0.0) + lib
-        return out, (rel, ab, t_k, t_p, bound_ms(f, b), lib)
+        return out, (rel, ab, t_k, t_1, t_p, bound_ms(f, b), lib)
 
     def records(self):
         out = {}
@@ -2437,7 +2481,8 @@ class RsfRecords:
         for n, r in self.rec.items():
             lib = (f", torch.bmm on the dense masked operands {r['library_ms']:.3f} ms"
                    if r["library_ms"] is not None else "")
-            print(f"{label}: {n} over {r['calls']} calls: kernel {r['ms']:.3f} ms, plain "
+            print(f"{label}: {n} over {r['calls']} calls: kernel {r['ms']:.3f} ms (one call "
+                  f"each {r['ms_1call']:.3f} ms), plain "
                   f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
                   f"({bound_ms(r['flops'], r['bytes'])[1]}; {r['flops']:.3e} operations, "
                   f"{r['bytes']:.3e} bytes){lib}; max abs err {r['max_abs_err']:.3e}",
@@ -2449,8 +2494,8 @@ def phase_rsf_kernels(torch, kernels, testing):
     the main path's shapes (testing.random_rsf_cases: L=1024, m=32, r=64,
     rf=512, kb=96, both sides; an empty, a tiny and an L/2 block; a lane
     _corth drops, a band keeping no column, the filled sketch's column mask
-    and pad, rank ties and sentinels), each timed over 3 launches against
-    its twin, with its bound and, for K11a/K11b, torch.bmm on the dense
+    and pad, rank ties and sentinels), each timed (:meth:`RsfRecords.add`)
+    against its twin, with its bound and, for K11a/K11b, torch.bmm on the dense
     masked operands.  Returns the worst absolute error per kernel."""
     dev = torch.device("cuda")
     recs = RsfRecords()
@@ -2461,12 +2506,12 @@ def phase_rsf_kernels(torch, kernels, testing):
             k = {key: torch.as_tensor(v, device=dev) if hasattr(v, "dtype") else v
                  for key, v in kw.items()}
             shape = "x".join(str(s) for s in a[1 if name != "rsf_frames" else 0].shape)
-            _, (rel, ab, t_k, t_p, (t_b, by), lib) = recs.add(torch, kernels, "phase 3f", name,
-                                                              mode, a, k, reps=3)
+            _, (rel, ab, t_k, t_1, t_p, (t_b, by), lib) = recs.add(torch, kernels, "phase 3f",
+                                                                   name, mode, a, k)
             lib_s = f", torch.bmm {lib:.3f} ms" if lib is not None else ""
             print(f"phase 3f: {name} {mode} side {side} ({shape}): rel err {rel:.3e}; kernel "
-                  f"{t_k:.3f} ms, plain {t_p:.3f} ms, bound {t_b:.4f} ms ({by}){lib_s}",
-                  flush=True)
+                  f"{t_k:.3f} ms (one call {t_1:.3f} ms), plain {t_p:.3f} ms, bound {t_b:.4f} ms "
+                  f"({by}){lib_s}", flush=True)
     recs.report("phase 3f")
     return {n: r["max_abs_err"] for n, r in recs.rec.items()}
 
@@ -2513,7 +2558,7 @@ def phase_rsf_parity(torch, np, slater, kernels, spectral):
 
 def rsf_hold_chunks(torch, kernels, spectral, C, chunks, label):
     """Every K11 call of main-path chunks, held against its twin and timed
-    (one launch each): ``chunks`` lists (side, block sizes) of chunks the
+    (:meth:`RsfRecords.add`): ``chunks`` lists (side, block sizes) of chunks the
     conversion runs, each run through ``rsf_sweep_frames`` with the kernels
     wrapped.  Prints the cuts each chunk keeps (its other cuts go to the
     exact frontend, so their kernel outputs are dropped) and raises if no

@@ -7,12 +7,22 @@ against; module names match it so each counterpart is easy to find.
 
 This package imports torch, numpy and scipy, and never jax.
 
-Ported so far: the Slater -> finite MPS path (``slater.H_to_MPS`` /
-``slater.C_to_MPS``), the BdG/Pfaffian -> finite MPS path
-(``pfaffian.H_to_MPS`` / ``pfaffian.C_to_MPS``), the charge-labelled MPS
-engine they need (:mod:`temfpy_torch.mps`), and the four hand-written CUDA
-kernels of those paths (:mod:`temfpy_torch.ops.kernels`).  The entry points
-run on the card unless the caller passes ``device="cpu"``.
+Ported so far:
+
+- the Slater -> finite MPS path (``slater.H_to_MPS`` / ``slater.C_to_MPS``)
+  with its three spectral frontends (the exact batched eigh, the
+  Fishman-White sweep :mod:`temfpy_torch.ops.fw` and the randomized
+  frontend :mod:`temfpy_torch.ops.spectral`) and its two tensor fills (the
+  direct determinant fill and the rank-update fill);
+- the BdG/Pfaffian -> finite MPS path (``pfaffian.H_to_MPS`` /
+  ``pfaffian.C_to_MPS``);
+- the charge-labelled MPS engine they need (:mod:`temfpy_torch.mps`);
+- the hand-written CUDA kernels of those paths, 13 sources under
+  ``temfpy_torch/csrc/`` built with nvcc at first use, each behind a
+  wrapper in :mod:`temfpy_torch.ops.kernels` beside its plain PyTorch twin.
+
+The entry points run on the card unless the caller passes
+``device="cpu"``.
 """
 
 __version__ = "0.1.0"

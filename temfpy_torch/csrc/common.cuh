@@ -6,6 +6,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <atomic>
+
 struct __align__(16) c128 {
     double re, im;
 };
@@ -268,4 +270,157 @@ __device__ __forceinline__ void tile_zero(double (&acc)[4][4]) {
     for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[i][j] = 0.0;
+}
+
+// ---- FP64 tensor cores and asynchronous copies (rsf_tsprod.cu, fw_frame_slab.cu) ----
+
+// D += A B for one 16 x 8 x 8 float64 tile on the tensor cores (mma.sync
+// DMMA; wgmma takes no float64).  Lane = 4 g + t holds (PTX ISA, "Matrix
+// Fragments for mma.m16n8k8" with .f64): a = {A[g][t], A[g + 8][t],
+// A[g][t + 4], A[g + 8][t + 4]}, b = {B[t][g], B[t + 4][g]}, d = {D[g][2 t],
+// D[g][2 t + 1], D[g + 8][2 t], D[g + 8][2 t + 1]}.  Every lane of the warp
+// calls it.  The m16n8k* shapes are new with sm_90; the older m8n8k4 does a
+// quarter of the work an instruction and does not reach the card's
+// float64 peak.
+__device__ __forceinline__ void dmma_16x8x8(double& d0, double& d1, double& d2, double& d3,
+                                            const double (&a)[4], const double (&b)[2]) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+        "{%8, %9}, {%0, %1, %2, %3};\n"
+        : "+d"(d0), "+d"(d1), "+d"(d2), "+d"(d3)
+        : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+
+// Asynchronous global -> shared copies of 16 or 8 bytes; of the source
+// only ``src_bytes`` are read, the rest of the destination is zeroed (0:
+// nothing is read, ``src`` must still be a valid address).
+__device__ __forceinline__ void cp_async16(double* dst, const double* src, int src_bytes) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+                 "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async8(double* dst, const double* src, int src_bytes) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src),
+                 "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// A warp's (16 MI) x (8 NI) share of a product tile, as MI x NI DMMA tiles
+// of 16 x 8: acc[r][ni][j] holds row m0 + 8 r + g, column n0 + 8 ni + 2 t + j
+// (r < 2 MI: 16-row tile r / 2, its upper or lower half).  One depth stage
+// of ``depth`` (a multiple of 8) from shared memory, in ascending depth, so
+// every sum is one chain of fused multiply-adds in depth order: B is
+// depth-major (element (k, n) at sB[k * ldb + n]); A is depth-major too
+// (A_DEPTH_MAJOR: (m, k) at sA[k * lda + m]) or row-major ((m, k) at
+// sA[m * lda + k]).  A leading dimension of 4 mod 16 doubles keeps the
+// fragment loads free of bank conflicts.
+template <bool A_DEPTH_MAJOR, int MI = 2, int NI = 4>
+__device__ __forceinline__ void warp_dmma_stage(double (&acc)[2 * MI][NI][2], const double* sA,
+                                                int lda, const double* sB, int ldb, int m0,
+                                                int n0, int depth) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    auto at = [&](int m, int k) { return A_DEPTH_MAJOR ? sA[k * lda + m] : sA[m * lda + k]; };
+    for (int k = 0; k < depth; k += 8) {
+        double a[MI][4], b[NI][2];
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) {
+            const int m = m0 + 16 * mi + g;
+            a[mi][0] = at(m, k + t);
+            a[mi][1] = at(m + 8, k + t);
+            a[mi][2] = at(m, k + t + 4);
+            a[mi][3] = at(m + 8, k + t + 4);
+        }
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni) {
+            b[ni][0] = sB[(k + t) * ldb + n0 + 8 * ni + g];
+            b[ni][1] = sB[(k + t + 4) * ldb + n0 + 8 * ni + g];
+        }
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+            for (int ni = 0; ni < NI; ++ni)
+                dmma_16x8x8(acc[2 * mi][ni][0], acc[2 * mi][ni][1], acc[2 * mi + 1][ni][0],
+                            acc[2 * mi + 1][ni][1], a[mi], b[ni]);
+    }
+}
+
+// Stages a ROWS x COLS tile of a float64 matrix into shared memory
+// (element (r, c) at dst[r * SLD + c]) with cp.async.  Row row0 + r starts
+// at ``row_ptr(row0 + r)``, or is not read where that is null; of its
+// columns col0 + c, those below col_end are read, except that a chunk lying
+// wholly below col_begin is not (the kernels discard those rows of the
+// product, so a chunk straddling col_begin may read both).  What is not read
+// is zeroed.  VEC = 2 copies 16 bytes (every row start, col0 and the
+// leading dimension even and 16-byte aligned; a pair whose second column is
+// past col_end copies 8 and zeroes 8), VEC = 1 copies 8.  ``base`` is any
+// valid address (the source operand of a copy that reads nothing).  Every
+// thread of the block calls it; ``nthreads`` threads share the work.
+template <int ROWS, int COLS, int SLD, int VEC, typename RowPtr>
+__device__ __forceinline__ void stage_tile(double* dst, RowPtr row_ptr, const double* base,
+                                           int row0, int col0, int col_begin, int col_end,
+                                           int nthreads) {
+    constexpr int kChunks = ROWS * COLS / VEC;
+    for (int e = threadIdx.x; e < kChunks; e += nthreads) {
+        const int r = e / (COLS / VEC), c = (e % (COLS / VEC)) * VEC;
+        const int col = col0 + c;
+        const double* row = row_ptr(row0 + r);
+        const int n = (row != nullptr && col + VEC > col_begin) ? max(0, min(VEC, col_end - col))
+                                                                : 0;
+        const double* from = n > 0 ? row + col : base;
+        if (VEC == 2)
+            cp_async16(dst + r * SLD + c, from, 8 * n);
+        else
+            cp_async8(dst + r * SLD + c, from, 8 * n);
+    }
+}
+
+// The cp.async ring over nk depth stages in STAGES shared-memory buffers:
+// load(buffer, kt) issues the copies of stage kt, compute(buffer) consumes
+// a stage that has landed; stage kt + STAGES - 1 loads while stage kt
+// computes.  Every thread of the block calls it (it synchronises).
+template <int STAGES, typename Load, typename Compute>
+__device__ __forceinline__ void cp_async_pipeline(int nk, Load load, Compute compute) {
+#pragma unroll
+    for (int st = 0; st < STAGES - 1; ++st) {
+        if (st < nk) load(st, st);
+        cp_async_commit();
+    }
+    for (int kt = 0; kt < nk; ++kt) {
+        cp_async_wait<STAGES - 2>();
+        __syncthreads();  // stage kt is visible; every warp is done with stage kt - 1
+        const int next = kt + STAGES - 1;
+        if (next < nk) load(next % STAGES, next);
+        cp_async_commit();
+        compute(kt % STAGES);
+    }
+    cp_async_wait<0>();
+}
+
+__host__ __forceinline__ bool aligned16(const void* p) {
+    return reinterpret_cast<unsigned long long>(p) % 16 == 0;
+}
+
+// Launches kernel K with ``smem`` bytes of dynamic shared memory (above 48
+// KB K must be allowed it first: done once per device, since the attribute
+// call costs microseconds, which a small launch would pay every time).
+template <auto K, typename... Args>
+cudaError_t launch_dynamic_smem(dim3 grid, int threads, int smem, cudaStream_t stream,
+                                Args... args) {
+    static std::atomic<unsigned long long> allowed{0};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+    if (!(allowed.load() & bit)) {
+        err = cudaFuncSetAttribute(K, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return err;
+        allowed.fetch_or(bit);
+    }
+    K<<<grid, threads, smem, stream>>>(args...);
+    return cudaGetLastError();
 }

@@ -73,8 +73,10 @@ _SIGNATURES = {
     "tf_pf_gather": [_i] + [_vp] * 4 + [_i] * 5 + [_vp],
     # C, X, x_shared, sizes, ncol, out, m, L, n, right, mode, stream
     "tf_rsf_apply": [_vp, _vp, _i, _vp, _vp, _vp] + [_i] * 5 + [_vp],
-    # A, B, sizes, ncol, G, m, L, p, q, right, stream
-    "tf_rsf_gram": [_vp] * 5 + [_i] * 5 + [_vp],
+    # A, B, sizes, ncol, G, m, L, p, q, right, tile, stream
+    "tf_rsf_gram": [_vp] * 5 + [_i] * 6 + [_vp],
+    # A, B, D, stream
+    "tf_dmma_probe": [_vp] * 4,
     # A, S, Z, e, sizes, out, floor, m, L, p, q, right, mode, stream
     "tf_rsf_combine": [_vp] * 6 + [_d] + [_i] * 6 + [_vp],
     # U, T, sizes, big, m, L, r, right, stream
@@ -166,6 +168,8 @@ def build() -> Path:
 def load() -> ctypes.CDLL:
     """The kernel library, built on first call, with ``argtypes`` set."""
     global _lib
+    if _lib is not None:  # every launch asks: no lock once loaded
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))

@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from .. import profiling
-from .kernels import fw_frame_slab
+from .kernels import fw_flat_width, fw_frame_slab
 
 logger = logging.getLogger(__name__)
 
@@ -388,7 +388,7 @@ def fw_frames(C_host, sizes, side, cutoff, device):
         with profiling.stage("fw/pack"):
             # one slab of B cuts (a short last slab is padded to B); pad
             # cuts keep xs = 0, so every row of their frames is masked
-            flat = np.zeros((B, kb + fb + Wb + 1), np.int32)
+            flat = np.zeros((B, fw_flat_width(kb, fb, Wb)), np.int32)
             Cmat = np.zeros((B, kb, keb), modes.V.dtype)
             flat[:, kb : kb + fb] = -1
             flat[:, kb + fb : kb + fb + Wb] = keb + fb
@@ -400,7 +400,7 @@ def fw_frames(C_host, sizes, side, cutoff, device):
                 flat[t, kb : kb + f] = one_sided
                 flat[t, kb + fb : kb + fb + m] = np.arange(m)
                 flat[t, kb + fb + m : kb + fb + m + f] = keb + np.arange(f)
-                flat[t, kb + fb + Wb] = len(e_full)
+                flat[t, kb + fb + Wb : kb + fb + Wb + 3] = (len(e_full), F.size, m)
         with profiling.stage("fw/kernel"):
             slab = fw_frame_slab(VT, torch.as_tensor(flat, device=device),
                                  torch.as_tensor(Cmat, device=device), side=side, L=L,

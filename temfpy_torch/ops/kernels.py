@@ -78,6 +78,7 @@ tensors.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -105,7 +106,18 @@ _SMEM_LIMIT = 227 * 1024
 
 
 def _stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of ``device``'s current stream (without building a
+    ``torch.cuda.Stream``, which costs microseconds a launch)."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def _on_device(device: torch.device):
+    """The context a launch on ``device`` runs in: nothing to enter where it
+    is already the current device."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def _check_cuda(tensors: dict, device: torch.device):
@@ -251,7 +263,7 @@ def _site_overlap_launch(wrapper, args, kb, mode):
         fn, extra = lib.tf_site_overlap_schur_gmem, (work.data_ptr(),)
     else:
         fn, extra = lib.tf_site_overlap_schur, ()
-    with torch.cuda.device(dev):
+    with _on_device(dev):
         err = fn(_DTYPE_CODE[frames_b.dtype], frames_b.data_ptr(), frames_k.data_ptr(),
                  G, L, Wb, Wk, colb.data_ptr(), kindb.data_ptr(), rowb.data_ptr(),
                  signb.data_ptr(), colk.data_ptr(), kindk.data_ptr(), rowk.data_ptr(),
@@ -363,7 +375,7 @@ def det_fill(M, det_always, occ_b, occ_k, pr, pc, tabs, *, spec: str, shape: tup
     slot_t = torch.tensor(slot, dtype=torch.int32, device=dev)
     n2 = t2.shape[1] if len(shape) == 3 else 0
     lib = _build.load()
-    with torch.cuda.device(dev):
+    with _on_device(dev):
         err = lib.tf_det_fill(
             _DTYPE_CODE[M.dtype], M.data_ptr(), det_always.data_ptr(),
             occ_b.data_ptr(), occ_k.data_ptr(), pr.data_ptr(), pc.data_ptr(),
@@ -508,7 +520,7 @@ def _bdg_overlap_launch(wrapper, V1h, V2h, j1, j2, thresh):
         fn, extra = lib.tf_bdg_overlap_gmem, (work.data_ptr(),)
     else:
         fn, extra = lib.tf_bdg_overlap, ()
-    with torch.cuda.device(dev):
+    with _on_device(dev):
         err = fn(V1h.data_ptr(), V2h.data_ptr(), j1.data_ptr(), j2.data_ptr(),
                  thresh.data_ptr(), G, nb, k1, k2, *extra, N.data_ptr(), norm.data_ptr(),
                  _stream_ptr(dev))
@@ -522,25 +534,38 @@ def _bdg_overlap_launch(wrapper, V1h, V2h, j1, j2, thresh):
 # --------------------------------------------------------------------------
 
 
+def fw_flat_width(kb: int, fb: int, Wb: int) -> int:
+    """Width of a ``fw_frame_slab`` index row: Xidx, Fidx, colmap, then xs,
+    kf and m."""
+    return kb + fb + Wb + 3
+
+
 def _fw_fields(flat, kb: int, fb: int, Wb: int):
-    return (flat[:, :kb], flat[:, kb : kb + fb], flat[:, kb + fb : kb + fb + Wb],
-            flat[:, kb + fb + Wb])
+    o = kb + fb + Wb
+    return (flat[:, :kb], flat[:, kb : kb + fb], flat[:, kb + fb : o], flat[:, o],
+            flat[:, o + 1], flat[:, o + 2])
 
 
 def fw_frame_slab_plain(VT, flat, Cmat, *, side: str, L: int, kb: int, fb: int, Wb: int):
     """Plain PyTorch twin of the ``fw_frame_slab`` kernel
     (``temfpy_tpu/ops/fw.py:_fw_frame_slab``, which takes V; here its
-    transpose).
+    transpose, and the per-cut counts below).
 
-    ``VT`` (L, L) float64, row j = mode j; ``flat`` (B, kb + fb + Wb + 1)
-    int32 holding per cut b the crossing-mode indices Xidx (kb; pad 0, with
-    zero Cmat rows), the one-sided filled modes Fidx (fb; pad -1 -> zero
-    column), the column map colmap (Wb; value keb + fb -> zero column) and
-    the block size xs; ``Cmat`` (B, kb, keb) Gram coefficients.  Returns the
-    frames (B, L, Wb): columns [VT[Xidx]^T Cmat | VT[Fidx]^T | 0][:, colmap],
-    rows outside the block (l >= xs for side "L", l < L - xs for "R")
-    zero."""
-    Xidx, Fidx, colmap, xs = (t.long() for t in _fw_fields(flat, kb, fb, Wb))
+    ``VT`` (L, L) float64, row j = mode j; ``flat`` (B, :func:`fw_flat_width`)
+    int32 holding per cut b the crossing-mode indices Xidx (kb; pad 0), the
+    one-sided filled modes Fidx (fb; pad -1 -> zero column), the column map
+    colmap (Wb; value keb + fb -> zero column), the block size xs, and the
+    counts kf and m of real crossing modes and Gram columns; ``Cmat`` (B, kb,
+    keb) Gram coefficients, of which only the leading kf rows and m columns
+    are read (the rest count as zero).  Returns the frames (B, L, Wb):
+    columns [VT[Xidx]^T Cmat | VT[Fidx]^T | 0][:, colmap], rows outside the
+    block (l >= xs for side "L", l < L - xs for "R") zero.  With kf = kb and
+    m = keb every entry of Cmat is read, as in the JAX package."""
+    Xidx, Fidx, colmap, xs, kf, mg = (t.long() for t in _fw_fields(flat, kb, fb, Wb))
+    keb = Cmat.shape[-1]
+    live_k = torch.arange(kb, device=VT.device)[None, :] < kf.clamp(0, kb)[:, None]
+    live_e = torch.arange(keb, device=VT.device)[None, :] < mg.clamp(0, keb)[:, None]
+    Cmat = Cmat * (live_k[:, :, None] & live_e[:, None, :]).to(Cmat.dtype)
     rows = torch.arange(L, device=VT.device)
     if side == "L":
         mask = rows[None, :] < xs[:, None]  # (B, L)
@@ -559,7 +584,7 @@ def fw_frame_slab(VT, flat, Cmat, *, side: str, L: int, kb: int, fb: int, Wb: in
     """A slab of B Fishman-White frames (arguments as in
     :func:`fw_frame_slab_plain`; on CUDA ``flat`` is int32 and ``VT`` and
     ``Cmat`` float64).  CPU tensors run the twin; CUDA tensors launch
-    ``csrc/fw_frame_slab.cu``."""
+    ``csrc/fw_frame_slab.cu``, whose work stops at each cut's kf and m."""
     if side not in ("L", "R"):
         raise ValueError(f"side must be 'L' or 'R', got {side!r}")
     dev = VT.device
@@ -573,9 +598,9 @@ def fw_frame_slab(VT, flat, Cmat, *, side: str, L: int, kb: int, fb: int, Wb: in
     keb = Cmat.shape[-1]
     if tuple(VT.shape) != (L, L):
         raise ValueError(f"VT has shape {tuple(VT.shape)}, expected {(L, L)}")
-    if tuple(flat.shape) != (B, kb + fb + Wb + 1):
+    if tuple(flat.shape) != (B, fw_flat_width(kb, fb, Wb)):
         raise ValueError(f"flat has shape {tuple(flat.shape)}, expected "
-                         f"{(B, kb + fb + Wb + 1)}")
+                         f"{(B, fw_flat_width(kb, fb, Wb))}")
     if tuple(Cmat.shape) != (B, kb, keb):
         raise ValueError(f"Cmat has shape {tuple(Cmat.shape)}, expected {(B, kb, keb)}")
     if VT.dtype != torch.float64 or Cmat.dtype != torch.float64:
@@ -584,7 +609,7 @@ def fw_frame_slab(VT, flat, Cmat, *, side: str, L: int, kb: int, fb: int, Wb: in
     _check_cuda({"VT": VT, "flat": flat, "Cmat": Cmat}, dev)
     out = torch.empty((B, L, Wb), dtype=torch.float64, device=dev)
     lib = _build.load()
-    with torch.cuda.device(dev):
+    with _on_device(dev):
         err = lib.tf_fw_frame_slab(VT.data_ptr(), flat.data_ptr(), Cmat.data_ptr(),
                                    out.data_ptr(), B, L, kb, keb, fb, Wb, int(side == "R"),
                                    _stream_ptr(dev))
@@ -676,7 +701,7 @@ def pf_fill(N, norm, pos_b, pos_k, cnt_b, cnt_k, pr, pc, tabs, *, width: int, sp
     out = torch.zeros((G, shape[0] + 1, D1, D2), dtype=N.dtype, device=dev)
     n2 = t2.shape[1] if len(shape) == 3 else 0
     lib = _build.load()
-    with torch.cuda.device(dev):
+    with _on_device(dev):
         err = lib.tf_pf_fill(
             N.data_ptr(), norm.data_ptr(), pos_b.data_ptr(), pos_k.data_ptr(),
             cnt_b.data_ptr(), cnt_k.data_ptr(), pr.data_ptr(), pc.data_ptr(),
@@ -754,7 +779,7 @@ def det_rows(M, idx_b, idx_k, scale=None, *, cross: bool = False):
         raise ValueError(f"paired index rows differ in count: {nb}, {nk}")
     out = torch.empty((G, nb, nk) if cross else (G, nb), dtype=M.dtype, device=dev)
     lib = _build.load()
-    with torch.cuda.device(dev):
+    with _on_device(dev):
         err = lib.tf_det_rows(_DTYPE_CODE[M.dtype], M.data_ptr(), scale.data_ptr(),
                               idx_b.data_ptr(), idx_k.data_ptr(), out.data_ptr(), G, m, w, nb,
                               nk, int(cross), _stream_ptr(dev))
@@ -822,7 +847,7 @@ def swap_tables(M, r0, c0):
     gmax = torch.empty(E, dtype=torch.float64, device=dev)
     tmax = torch.empty(E, dtype=torch.float64, device=dev)
     lib = _build.load()
-    with torch.cuda.device(dev):
+    with _on_device(dev):
         err = lib.tf_swap_tables(_DTYPE_CODE[M.dtype], M.data_ptr(), r0.data_ptr(),
                                  c0.data_ptr(), D0.data_ptr(), G.data_ptr(), P.data_ptr(),
                                  T2.data_ptr(), T3.data_ptr(), gmax.data_ptr(), tmax.data_ptr(),
@@ -962,7 +987,7 @@ def swap_fill(M, det_always, D0, G, P, T2, T3, Rin, Rout, Rpos, sgr, Cin, Cout, 
     else:
         out = torch.empty((U, P_b), dtype=M.dtype, device=dev)
         tab_ptrs, dims = (0, 0, 0, 0), (0, 0, 0, 0, 0, 0, 0)
-    with torch.cuda.device(dev):
+    with _on_device(dev):
         err = lib.tf_swap_fill(
             _DTYPE_CODE[M.dtype], *(t.data_ptr() for t in args), *tab_ptrs, out.data_ptr(), U,
             m, w, R_b, K_b, Wr, Wc, P_b, s_b, *dims, int(scatter), _stream_ptr(dev))
@@ -1021,7 +1046,7 @@ def pf_gather(N, bra_idx, ket_idx, pad_slots: int):
     _check_cuda({"N": N, "bra_idx": bra_idx, "ket_idx": ket_idx}, dev)
     out = torch.empty((nb, nk), dtype=N.dtype, device=dev)
     lib = _build.load()
-    with torch.cuda.device(dev):
+    with _on_device(dev):
         err = lib.tf_pf_gather(_DTYPE_CODE[N.dtype], N.data_ptr(), bra_idx.data_ptr(),
                                ket_idx.data_ptr(), out.data_ptr(), m, nb, nk, kb, kk,
                                _stream_ptr(dev))
@@ -1130,7 +1155,7 @@ def rsf_apply(mode: str, C, X, sizes, *, side: str, ncol=None):
     _rsf_checks(dev, {"C": C, "X": X}, i32)
     out = torch.empty((m, L, n), dtype=torch.float64, device=dev)
     lib = _build.load()
-    with torch.cuda.device(dev):
+    with _on_device(dev):
         err = lib.tf_rsf_apply(C.data_ptr(), X.data_ptr(), int(shared), sizes.data_ptr(),
                                None if ncol is None else ncol.data_ptr(), out.data_ptr(), m, L, n,
                                right, RSF_APPLY_MODES[mode], _stream_ptr(dev))
@@ -1179,13 +1204,27 @@ def rsf_tsprod_plain(mode: str, A, B, sizes, *, side: str, Z=None, e=None, floor
     return P
 
 
+RSF_SMS = 132
+"""Streaming multiprocessors of the H100, the card the gram kernel's tile
+choice is made for."""
+
+
+def rsf_gram_tile(p: int, q: int, m: int) -> int:
+    """Edge of the gram kernel's square output tile for m (p, q) Grams: 64
+    where its tiles give every SM a block, else 32 (the r-wide Grams of a
+    chunk: 32 tiles of 64, 128 of 32).  Each output is summed over all the
+    block rows by one block, so the tile changes the blocks, not the sum."""
+    tiles = -(-p // 64) * -(-q // 64) * m
+    return 64 if tiles >= RSF_SMS else 32
+
+
 def rsf_tsprod(mode: str, A, B, sizes, *, side: str, Z=None, e=None, floor: float = 0.0,
                ncol=None):
     """A batched tall-skinny product of one chunk (arguments and result as in
     :func:`rsf_tsprod_plain`; on CUDA ``sizes``/``ncol`` are int32 and every
     tensor contiguous float64).  CPU tensors run the twin; CUDA tensors
-    launch ``csrc/rsf_tsprod.cu`` (its gram kernel for "gram", else its
-    combine kernel)."""
+    launch ``csrc/rsf_tsprod.cu``: its gram kernel for "gram" (output tiles
+    of :func:`rsf_gram_tile`), else its combine kernel."""
     _rsf_mode(mode, RSF_TSPROD_MODES)
     right = _rsf_right(side)
     dev = A.device
@@ -1205,10 +1244,10 @@ def rsf_tsprod(mode: str, A, B, sizes, *, side: str, Z=None, e=None, floor: floa
         i32 = {"sizes": sizes} if ncol is None else {"sizes": sizes, "ncol": ncol}
         _rsf_checks(dev, {"A": A, "B": B}, i32)
         out = torch.empty((m, p, q), dtype=torch.float64, device=dev)
-        with torch.cuda.device(dev):
+        with _on_device(dev):
             err = lib.tf_rsf_gram(A.data_ptr(), B.data_ptr(), sizes.data_ptr(),
                                   None if ncol is None else ncol.data_ptr(), out.data_ptr(), m, L,
-                                  p, q, right, _stream_ptr(dev))
+                                  p, q, right, rsf_gram_tile(p, q, m), _stream_ptr(dev))
     else:
         q = B.shape[-1]
         if tuple(B.shape) != (m, p, q):
@@ -1224,7 +1263,7 @@ def rsf_tsprod(mode: str, A, B, sizes, *, side: str, Z=None, e=None, floor: floa
             f64["e"] = e
         _rsf_checks(dev, f64, {"sizes": sizes})
         out = torch.empty((m, L, q), dtype=torch.float64, device=dev)
-        with torch.cuda.device(dev):
+        with _on_device(dev):
             err = lib.tf_rsf_combine(A.data_ptr(), B.data_ptr(),
                                      None if mode != "sub" else Z.data_ptr(),
                                      None if mode != "scale" else e.data_ptr(), sizes.data_ptr(),
@@ -1236,6 +1275,32 @@ def rsf_tsprod(mode: str, A, B, sizes, *, side: str, Z=None, e=None, floor: floa
 
 
 rsf_tsprod.launches = 0
+
+
+def dmma_probe(A, B):
+    """D = A B for a 16 x 8 A and an 8 x 8 B (float64): on CUDA one warp's
+    mma.sync m16n8k8 DMMA product (``csrc/rsf_tsprod.cu:dmma_probe_kernel``),
+    which holds the fragment layout the K9 and K11b kernels build on; on
+    the CPU ``A @ B``."""
+    if tuple(A.shape) != (16, 8) or tuple(B.shape) != (8, 8):
+        raise ValueError(f"dmma_probe takes (16, 8) and (8, 8), got {tuple(A.shape)}, "
+                         f"{tuple(B.shape)}")
+    dev = A.device
+    if dev.type == "cpu":
+        return A @ B
+    from . import _build
+
+    _rsf_checks(dev, {"A": A, "B": B}, {})
+    out = torch.empty((16, 8), dtype=torch.float64, device=dev)
+    lib = _build.load()
+    with _on_device(dev):
+        err = lib.tf_dmma_probe(A.data_ptr(), B.data_ptr(), out.data_ptr(), _stream_ptr(dev))
+    _raise_on(err, "dmma_probe")
+    dmma_probe.launches += 1
+    return out
+
+
+dmma_probe.launches = 0
 
 
 def rsf_keep_window(lo: float, hi: float) -> tuple:
@@ -1293,7 +1358,7 @@ def rsf_ritz_select(mode: str, X, Y, sizes, *, side: str, lam=None, lo=None, hi=
             raise ValueError(f"T has shape {tuple(Y.shape)}, expected {(m, r, r)}")
         _rsf_checks(dev, {"U": X, "T": Y}, {"sizes": sizes})
         out = Y.clone()
-        with torch.cuda.device(dev):
+        with _on_device(dev):
             err = lib.tf_rsf_ritz_shift(X.data_ptr(), out.data_ptr(), sizes.data_ptr(), RSF_BIG,
                                         m, L, r, right, _stream_ptr(dev))
     else:
@@ -1304,7 +1369,7 @@ def rsf_ritz_select(mode: str, X, Y, sizes, *, side: str, lam=None, lo=None, hi=
         Vk = torch.empty_like(X)
         lam_out = torch.empty_like(lam)
         out = (Vk, lam_out)
-        with torch.cuda.device(dev):
+        with _on_device(dev):
             err = lib.tf_rsf_ritz_select(X.data_ptr(), Y.data_ptr(), lam.data_ptr(),
                                          sizes.data_ptr(), Vk.data_ptr(), lam_out.data_ptr(), lo2,
                                          hi_ext, float(res_tol), RSF_SENTINEL, m, L, r, right,
@@ -1392,7 +1457,7 @@ def rsf_frames(mode: str, lam_all, *args, kb: int | None = None):
         tr_res = torch.empty_like(tr)
         order = torch.empty((m, n), dtype=torch.int32, device=dev)
         out = (k, n_f, tr_res, order)
-        with torch.cuda.device(dev):
+        with _on_device(dev):
             err = lib.tf_rsf_frames_stats(lam_all.data_ptr(), tr.data_ptr(), k.data_ptr(),
                                           n_f.data_ptr(), tr_res.data_ptr(), order.data_ptr(),
                                           RSF_SENTINEL, m, n, _stream_ptr(dev))
@@ -1410,7 +1475,7 @@ def rsf_frames(mode: str, lam_all, *args, kb: int | None = None):
         slab = torch.empty((m, L, Wb), dtype=torch.float64, device=dev)
         packed = torch.empty((m, 2 * kb + 3), dtype=torch.float64, device=dev)
         out = (slab, packed)
-        with torch.cuda.device(dev):
+        with _on_device(dev):
             err = lib.tf_rsf_frames_place(U_all.data_ptr(), Yf.data_ptr(), lam_all.data_ptr(),
                                           k.data_ptr(), n_f.data_ptr(), tr_res.data_ptr(),
                                           info.data_ptr(), order.data_ptr(), slab.data_ptr(),

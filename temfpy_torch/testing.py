@@ -254,20 +254,24 @@ def random_site_overlap_case(seed: int, *, G: int, L: int, kb: int, sb: int,
 
 
 def random_fw_slab_case(seed: int, *, L: int, B: int, kb: int, keb: int, fb: int, Wb: int,
-                        n_cuts: int | None = None):
+                        n_cuts: int | None = None, packed: bool = False):
     """Seeded inputs of :func:`temfpy_torch.ops.kernels.fw_frame_slab` shaped
     like one slab of the Fishman-White frontend: VT the transpose of an
     (L, L) orthogonal mode matrix; per real cut, between kb/2 and kb
     crossing modes (the rest pad 0 with zero Cmat rows), between keb/2 and
     keb Gram columns, up to fb one-sided modes (the rest -1 pads), a
     colmap that shuffles [Gram | one-sided slots, -1 pads included] and
-    ends in at least three pad columns, and a block size in [1, L]; the
-    last B - ``n_cuts`` cuts (default B - 5: a short last slab) are pad
-    cuts with block size 0.  Returns (VT, flat, Cmat) as numpy."""
+    ends in at least three pad columns, a block size in [1, L] and the
+    counts of real crossing modes and Gram columns; the last B - ``n_cuts``
+    cuts (default B - 5: a short last slab) are pad cuts with block size
+    and counts 0.  ``packed``: colmap in the order ``ops/fw.py`` packs
+    (Gram columns in place, then the real one-sided slots, then pads)
+    instead of shuffled.  Returns (VT, flat, Cmat) as numpy."""
     rng = np.random.default_rng(seed)
     n_cuts = B - 5 if n_cuts is None else n_cuts
     V = np.linalg.qr(rng.normal(size=(L, L)))[0]
-    flat = np.zeros((B, kb + fb + Wb + 1), np.int32)
+    o = kb + fb + Wb
+    flat = np.zeros((B, o + 3), np.int32)
     flat[:, kb : kb + fb] = -1
     flat[:, kb + fb : kb + fb + Wb] = keb + fb
     Cmat = np.zeros((B, kb, keb))
@@ -279,9 +283,11 @@ def random_fw_slab_case(seed: int, *, L: int, B: int, kb: int, keb: int, fb: int
         Cmat[b, :nk, :m] = rng.normal(size=(nk, m), scale=nk**-0.5)
         flat[b, kb : kb + f] = rng.choice(L, f, replace=False)
         cols = rng.permutation(np.concatenate([np.arange(m), keb + np.arange(fb)]))
+        if packed:
+            cols = np.concatenate([np.arange(m), keb + np.arange(f)])
         cols = cols[: Wb - 3]
         flat[b, kb + fb : kb + fb + cols.size] = cols
-        flat[b, -1] = rng.integers(1, L + 1)
+        flat[b, o : o + 3] = (rng.integers(1, L + 1), nk, m)
     return np.ascontiguousarray(V.T), flat, Cmat
 
 

@@ -368,3 +368,135 @@ def test_rsf_conversion_on_cuda_matches_cpu(cuda, monkeypatch):
         f = abs(gpu.overlap(other)) / np.sqrt(gpu.norm_squared() * other.norm_squared())
         assert f >= 1 - 1e-10
     assert spectral.rsf_stats()["cuts"] == 0
+
+
+# --------------------------------------------------------------------------
+# the redesigned K11b (rsf_tsprod: tiles that fill the card, DMMA, cp.async)
+# and K9 (fw_frame_slab: real counts, DMMA, cp.async)
+# --------------------------------------------------------------------------
+
+def _bits(t):
+    return t.contiguous().view(torch.int64)
+
+
+def _tsprod_within(name, got, ref, mag):
+    """K11b against its twin relative to the terms' magnitude |A||B| (the
+    products cancel), with the non-finite entries equal."""
+    fin = ref.isfinite()
+    assert torch.equal(got.isfinite(), fin), name
+    err = float((got - ref)[fin].abs().max()) if bool(fin.any()) else 0.0
+    assert err <= RTOL * max(mag, 1.0), (name, err, mag)
+
+
+@pytest.mark.parametrize("side", ["L", "R"])
+@pytest.mark.parametrize("p", [1, 7, 64, 96])
+@pytest.mark.parametrize("q", [1, 7, 64, 96])
+def test_rsf_tsprod_ragged_shapes(cuda, side, p, q):
+    """Every rsf_tsprod mode at ragged p, q and block sizes 0, 1, 15, 16,
+    17 and L/2 (L = 128; the gram on 32 x 32 tiles, its stages ragged),
+    the gram with ncol (identity pad past it) where p = q, and "scale" with
+    lanes its filter drops: those columns exactly zero."""
+    L = 128
+    sizes = np.array([0, 1, 15, 16, 17, L // 2], np.int32)
+    m = sizes.size
+    rng = np.random.default_rng(100 * p + q + (side == "R"))
+    blk = kernels.rsf_block_mask(torch.as_tensor(sizes), side, L).numpy()[:, :, None]
+    A = torch.as_tensor(blk * rng.normal(size=(m, L, p)), device=cuda)
+    Bq = torch.as_tensor(blk * rng.normal(size=(m, L, q)), device=cuda)
+    Z = torch.as_tensor(rng.normal(size=(m, L, q)), device=cuda)
+    S = torch.as_tensor(rng.normal(size=(m, p, q)), device=cuda)
+    e = torch.as_tensor(rng.choice([0.5, 1e-9, 2.0], size=(m, q)), device=cuda)
+    sz = torch.as_tensor(sizes, device=cuda)
+    kw = {"side": side}
+    cases = [("gram", (A, Bq), {}), ("sub", (A, S), {"Z": Z}), ("mul", (A, S), {}),
+             ("scale", (A, S), {"e": e, "floor": 1e-3})]
+    if p == q:
+        ncol = torch.as_tensor(np.array([p, 0, p // 2, p, 1, p - 1], np.int32), device=cuda)
+        cases.append(("gram", (A, A), {"ncol": ncol}))
+    for mode, (X, Y), extra in cases:
+        got = kernels.rsf_tsprod(mode, X, Y, sz, **kw, **extra)
+        ref = kernels.rsf_tsprod_plain(mode, X, Y, sz, **kw, **extra)
+        no_ez = {k: v for k, v in extra.items() if k not in ("Z", "e", "floor")}
+        mag = float(kernels.rsf_tsprod_plain("gram" if mode == "gram" else "mul", X.abs(),
+                                             Y.abs(), sz, **kw, **no_ez).max())
+        if mode == "sub":
+            mag = max(mag, float(Z.abs().max()))
+        _tsprod_within(f"{mode} {extra.keys()}", got, ref, mag)
+        if mode == "scale":
+            dropped = (e <= 1e-6)[:, None, :].expand_as(got)
+            assert bool((got[dropped] == 0).all())
+        if mode == "gram" and "ncol" in extra:
+            pad = torch.arange(p, device=cuda)[None, :] >= ncol.long()[:, None]
+            assert bool((torch.diagonal(got, dim1=1, dim2=2)[pad] == 1).all())
+
+
+@pytest.mark.parametrize("side", ["L", "R"])
+@pytest.mark.parametrize("p", [96, 130])
+def test_rsf_gram_on_wide_tiles(cuda, side, p):
+    """The gram on 64 x 64 tiles (enough cuts for every SM a block): ragged
+    p past a tile edge, block sizes from 0 to L, ncol with its pad."""
+    L, m = 200, 40
+    assert kernels.rsf_gram_tile(p, p, m) == 64
+    rng = np.random.default_rng(p + (side == "R"))
+    sizes = np.linspace(0, L, m).round().astype(np.int32)
+    blk = kernels.rsf_block_mask(torch.as_tensor(sizes), side, L).numpy()[:, :, None]
+    A = torch.as_tensor(blk * rng.normal(size=(m, L, p)), device=cuda)
+    sz = torch.as_tensor(sizes, device=cuda)
+    ncol = torch.as_tensor(rng.integers(0, p + 1, size=m).astype(np.int32), device=cuda)
+    for extra in ({}, {"ncol": ncol}):
+        got = kernels.rsf_tsprod("gram", A, A, sz, side=side, **extra)
+        ref = kernels.rsf_tsprod_plain("gram", A, A, sz, side=side, **extra)
+        mag = float(kernels.rsf_tsprod_plain("gram", A.abs(), A.abs(), sz, side=side,
+                                             **extra).max())
+        _tsprod_within(f"gram {extra.keys()}", got, ref, mag)
+
+
+@pytest.mark.parametrize("side", ["L", "R"])
+@pytest.mark.parametrize("kb,keb", [(64, 64), (512, 256), (1024, 512)])
+@pytest.mark.parametrize("packed", [False, True])
+def test_fw_frame_slab_phase3c_shapes(cuda, side, kb, keb, packed):
+    """K9 at chip_smoke phase 3c's slab shapes (L = 1024, B = 64, fb = 64,
+    Wb = 512): real counts below kb and keb, five pad cuts, Fidx = -1 and
+    colmap pads; colmap shuffled (Cmat gathered column by column) or in the
+    packing's order (Cmat rows read whole)."""
+    L, B, fb, Wb = 1024, 64, 64, 512
+    VT, flat, Cmat = testing.random_fw_slab_case(kb + keb + packed, L=L, B=B, kb=kb, keb=keb,
+                                                 fb=fb, Wb=Wb, packed=packed)
+    o = kb + fb + Wb
+    assert (flat[:-5, o + 1] < kb).any() and (flat[:-5, o + 2] < keb).any()
+    a = [torch.as_tensor(x, device=cuda) for x in (VT, flat, Cmat)]
+    kw = {"side": side, "L": L, "kb": kb, "fb": fb, "Wb": Wb}
+    got = kernels.fw_frame_slab(*a, **kw)
+    assert _rel(got, kernels.fw_frame_slab_plain(*a, **kw)) <= RTOL
+    assert float(got[-5:].abs().max()) == 0.0 < float(got.abs().max())
+
+
+def test_redesigned_kernels_repeat_bit_for_bit(cuda):
+    """Two launches of K11b (grams on 32 x 32 and on 64 x 64 tiles, every
+    combine mode) and of K9 on the same inputs return the same bits."""
+    L, m, r, rf = 1024, 32, 64, 512
+    for name, mode, args, kw in testing.random_rsf_cases(5, L=L, m=m, r=r, rf=rf, kb=96):
+        if name != "rsf_tsprod":
+            continue
+        a = [_as_cuda(x, cuda) for x in args]
+        kwd = {k: _as_cuda(v, cuda) for k, v in kw.items()}
+        first = kernels.rsf_tsprod(mode, *a, **kwd)
+        assert torch.equal(_bits(first), _bits(kernels.rsf_tsprod(mode, *a, **kwd))), mode
+    VT, flat, Cmat = testing.random_fw_slab_case(9, L=L, B=16, kb=256, keb=128, fb=32, Wb=256)
+    a = [torch.as_tensor(x, device=cuda) for x in (VT, flat, Cmat)]
+    kw = {"side": "R", "L": L, "kb": 256, "fb": 32, "Wb": 256}
+    assert torch.equal(_bits(kernels.fw_frame_slab(*a, **kw)),
+                       _bits(kernels.fw_frame_slab(*a, **kw)))
+
+
+def test_dmma_fragment_layout(cuda):
+    """One mma.sync m16n8k8 float64 product with the fragment layout the
+    kernels use, against torch.matmul on the CPU copy: integer-valued
+    entries, so the sums are exact."""
+    rng = np.random.default_rng(8)
+    A = torch.as_tensor(rng.integers(-9, 10, size=(16, 8)).astype(np.float64))
+    B = torch.as_tensor(rng.integers(-9, 10, size=(8, 8)).astype(np.float64))
+    before = kernels.dmma_probe.launches
+    D = kernels.dmma_probe(A.to(cuda), B.to(cuda))
+    assert kernels.dmma_probe.launches == before + 1
+    assert torch.equal(D.cpu(), torch.matmul(A, B))
