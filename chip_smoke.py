@@ -93,13 +93,20 @@ one main-path group per shape, the least time the card could take for the
 work of those groups (``bound_ms``: the larger of their operations at
 FP64_PEAK and their bytes at HBM_RATE, computed from this run's inputs)
 and the time of one PyTorch call computing the same function
-(``library_ms``, null where none does).  Where a record has a library
-call, kernel and library call are timed alike (:func:`cuda_ms`,
-TIMING_REPS launches after a warm one, on the same captured inputs; the
-kernel's one-call time with its wrapper's host work is printed beside);
-the redesigned ``fw_frame_slab`` and ``rsf_tsprod`` must also return the
-same bits from two launches on each held input.  The last line is
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+(``library_ms``, null where none does: ``site_overlap_schur`` and its
+wide wrapper, which no single call computes, print the summed library
+composition of :func:`overlap_library_ms` beside, for reference).  Every timed
+kernel and library call is timed alike (:func:`cuda_ms`, TIMING_REPS
+launches after a warm one, on the same captured inputs; the kernel's
+one-call time with its wrapper's host work is printed beside; a library
+call takes the whole pre-gathered batch of a group, in chunks of
+LIBRARY_CHUNK_BYTES); the redesigned ``det_fill``,
+``site_overlap_schur`` (both wrappers), ``fw_frame_slab`` and
+``rsf_tsprod`` must also return the same bits from two launches on each
+held input.  Phase 7 also meters every K1/K2 launch of one more exact
+conversion, untimed (:func:`conversion_meter`: device time, work and
+bound over the whole conversion).  The last line is ``{"ok": true, "device":
+{...}}``.  Imports nothing of JAX.
 """
 
 import contextlib
@@ -463,40 +470,102 @@ def det_fill_cost(torch, args, kw, out):
     """(operations, bytes) of one det_fill group: an LU of the c x c block
     each pair needs (c = its occupied orbitals; sentinels add nothing),
     2c^3/3 real operations (x4 complex); every input once and one value per
-    real pair."""
+    real pair.  Both may be 0-d device tensors (no synchronisation here)."""
     M, det, ob, ok, pr, pc, tabs = args
     cnt = (ob < M.shape[-1]).sum(-1)
     c = torch.gather(cnt, 1, pr.long()).double()
     mult = 4 if M.is_complex() else 1
-    return (float((2.0 / 3.0 * c**3).sum()) * mult,
-            nbytes(*args) + written_bytes(pr, ob.shape[1] - 1, M))
+    real = (pr != ob.shape[1] - 1).sum() * M.element_size()
+    return (2.0 / 3.0 * c**3).sum() * mult, nbytes(*args) + real
 
 
 def overlap_cost(torch, args, kw, out):
     """(operations, bytes) of one site_overlap_schur group: O = vb^H vk
     (L mb^2 multiply-adds), Gauss-Jordan on [A | B] (kb^2 mb) and the Schur
-    product (sb^2 kb) per site, 2 real operations each (x4 complex)."""
-    fb, colb, kb = args[0], args[2], kw["kb"]
+    product (sb^2 kb) per site, 2 real operations each (x4 complex).  The
+    bytes are those the function needs: the L rows of each frame column a
+    descriptor names (kind 0; one-hot and zero columns read no frame), the
+    descriptors and the outputs; a frame's other columns are not read.
+    The bytes may be a 0-d device tensor (no synchronisation here)."""
+    fb, kindb, kindk, kb = args[0], args[3], args[7], kw["kb"]
     G, L, _ = fb.shape
-    mb = colb.shape[-1]
+    mb = kindb.shape[-1]
     sb = mb - kb
     mult = 4 if fb.is_complex() else 1
-    return 2.0 * G * (L * mb * mb + kb * kb * mb + sb * sb * kb) * mult, nbytes(*args, *out)
+    cols = (kindb == 0).sum() + (kindk == 0).sum()
+    return (2.0 * G * (L * mb * mb + kb * kb * mb + sb * sb * kb) * mult,
+            cols * (L * fb.element_size()) + nbytes(*args[2:], *out))
+
+
+LIBRARY_CHUNK_BYTES = 4 << 30
+"""Largest pre-gathered batch (bytes) that one timed library call takes: a
+group whose matrices exceed it is timed in site chunks of at most this
+size (each still millions of matrices, one call each), so that the
+gathered copy and the library's own workspace stay a few GB."""
+
+
+def batched_library_ms(torch, sites, gather, fn):
+    """Milliseconds (:func:`cuda_ms`, TIMING_REPS) of ``fn`` on the
+    concatenated batches ``gather(s)`` of ``sites``: one call over all of
+    them, or one per chunk of LIBRARY_CHUNK_BYTES, summed.  The gathers are
+    made before the timed calls."""
+    total, chunk, size = 0.0, [], 0
+
+    def flush():
+        nonlocal chunk, size
+        if chunk:
+            batch = torch.cat(chunk) if len(chunk) > 1 else chunk[0]
+            chunk, size = [], 0
+            return cuda_ms(lambda: fn(batch), TIMING_REPS)
+        return 0.0
+
+    for s in sites:
+        sub = gather(s)
+        if chunk and size + nbytes(sub) > LIBRARY_CHUNK_BYTES:
+            total += flush()
+        chunk.append(sub)
+        size += nbytes(sub)
+    return total + flush()
 
 
 def det_fill_library_ms(torch, args):
-    """Milliseconds of torch.linalg.det on the group's pre-gathered (P_b, w,
-    w) batches, one call per site, summed; the gather and the scatter are
-    left out."""
+    """Milliseconds of one torch.linalg.det over the group's pre-gathered
+    (G P_b, w, w) matrices (:func:`batched_library_ms`); the gather and the
+    scatter are left out."""
     from temfpy_torch.ops.linalg import block_diag_identity_pad, gather_submatrices
 
     M, _det, ob, ok, pr, pc, _tabs = args
-    w, total = ob.shape[-1], 0.0
-    for g in range(M.shape[0]):
-        sub = gather_submatrices(block_diag_identity_pad(M[g], w), ob[g][pr[g].long()],
-                                 ok[g][pc[g].long()])
-        total += timed(torch, lambda: torch.linalg.det(sub))[1]
-    return total
+    w = ob.shape[-1]
+    return batched_library_ms(
+        torch, range(M.shape[0]),
+        lambda g: gather_submatrices(block_diag_identity_pad(M[g], w), ob[g][pr[g].long()],
+                                     ok[g][pc[g].long()]),
+        torch.linalg.det)
+
+
+def overlap_library_ms(torch, args, kw):
+    """Milliseconds of the library composition that computes
+    site_overlap_schur's function on the same inputs, each step timed by
+    :func:`cuda_ms` (TIMING_REPS) and summed: torch.bmm of the gathered
+    columns (vb^H vk; the gather made before), torch.linalg.lu_factor and
+    lu_solve of A X = B, and torch.baddbmm for D - C X.  No single call
+    computes K2, so this is a composition, for reference."""
+    from temfpy_torch.ops.kernels import orbital_columns
+
+    fb, fk, colb, kindb, rowb, signb, colk, kindk, rowk, signk = args
+    kb = kw["kb"]
+    vbh = orbital_columns(fb, colb, kindb, rowb, signb).conj().transpose(1, 2).contiguous()
+    vk = orbital_columns(fk, colk, kindk, rowk, signk)
+    ms = cuda_ms(lambda: torch.bmm(vbh, vk), TIMING_REPS)
+    if kb == 0:
+        return ms
+    O = torch.bmm(vbh, vk)
+    a, s = (slice(None, kb), slice(kb, None)) if kw["mode"] == "left" else (
+        slice(-kb, None), slice(None, -kb))
+    A, B, C, D = (O[:, i, j].contiguous() for i, j in ((a, a), (a, s), (s, a), (s, s)))
+    ms += cuda_ms(lambda: torch.linalg.lu_solve(*torch.linalg.lu_factor(A), B), TIMING_REPS)
+    X = torch.linalg.lu_solve(*torch.linalg.lu_factor(A), B)
+    return ms + cuda_ms(lambda: torch.baddbmm(D, C, X, alpha=-1), TIMING_REPS)
 
 
 CAPTURED = {
@@ -505,12 +574,26 @@ CAPTURED = {
     "det_fill": ("det_fill", "det_fill_plain", det_fill_err, det_fill_ext, det_fill_cost,
                  lambda torch, args, kw: det_fill_library_ms(torch, args)),
     "site_overlap_schur": ("site_overlap_schur", "site_overlap_schur_plain", overlap_err,
-                           overlap_ext, overlap_cost, None),
+                           overlap_ext, overlap_cost, overlap_library_ms),
     "site_overlap_schur_gmem": ("site_overlap_schur_gmem", "site_overlap_schur_plain",
-                                overlap_err, overlap_ext, overlap_cost, None),
+                                overlap_err, overlap_ext, overlap_cost, overlap_library_ms),
 }
 """The kernels phase_captured holds against their twins; the rank-update
 kernels join it below their own section."""
+LIBRARY_LABEL = {
+    "det_fill": "torch.linalg.det on the gathered batches",
+    "site_overlap_schur": "library composition (bmm, lu_factor + lu_solve, baddbmm)",
+    "site_overlap_schur_gmem": "library composition (bmm, lu_factor + lu_solve, baddbmm)",
+    "det_rows": "torch.linalg.det on the gathered batches",
+    "swap_fill": "torch.linalg.det on the bordered matrices",
+}
+COMPOSITION = ("site_overlap_schur", "site_overlap_schur_gmem")
+"""Kernels whose library time is a composition of several calls: printed
+and kept as ``composition_ms``, while the ``kernels`` line's
+``library_ms`` (one call computing the same function) stays null."""
+REPEATED = ("det_fill", "site_overlap_schur", "site_overlap_schur_gmem")
+"""Redesigned kernels whose captured groups must also return the same bits
+from a second launch (:func:`check_repeatable`)."""
 
 
 def hold(torch, kernels, label, name, key, args, kw):
@@ -544,16 +627,20 @@ def hold(torch, kernels, label, name, key, args, kw):
 
 
 def phase_captured(torch, kernels, label, groups_by_name):
-    """Phases 5b and 7: each kernel against its twin (:func:`hold`) on the
-    exact inputs the main path gave it, one group per (w, spec, P_b) and
-    per (kb, mb, mode).  Returns, per kernel, the worst absolute
-    kernel-twin difference and the summed kernel and twin milliseconds
-    over the groups."""
+    """Phases 5b, 7 and 8: each kernel against its twin (:func:`hold`) on
+    the exact inputs the main path gave it, one group per (w, spec, P_b)
+    and per (kb, mb, mode), the redesigned ones (REPEATED) also launched
+    twice for the same bits.  Times: the kernel and its library call by
+    :func:`cuda_ms` (TIMING_REPS after a warm call, the same inputs), the
+    kernel's one-call :func:`timed` figure (its wrapper's host work
+    included) printed beside, the twin one :func:`timed` call.  Returns,
+    per kernel, the worst absolute kernel-twin difference and the summed
+    kernel, twin, bound and library milliseconds over the groups."""
     rec = {}
     for name, groups in groups_by_name.items():
         kname, pname, _err, _ext, cost, library = CAPTURED[name]
         kernel, plain = getattr(kernels, kname), getattr(kernels, pname)
-        ms = plain_ms = worst = lib_ms = bnd = flops = nbyte = 0.0
+        ms = ms_1 = plain_ms = worst = lib_ms = bnd = flops = nbyte = 0.0
         for key, (args, kw) in sorted(groups.items()):
             rel, ab, _held = hold(torch, kernels, label, name, key, args, kw)
             kw_t = dict(kw)
@@ -564,24 +651,39 @@ def phase_captured(torch, kernels, label, groups_by_name):
                 kw_t.update(out=torch.zeros((G, shape[0] + 1) + tuple(shape[1:]),
                                             dtype=args[0].dtype, device=args[0].device),
                             slot=list(range(G)))
-            out, t_k = timed(torch, lambda: kernel(*args, **kw_t))
+            call = lambda: kernel(*args, **kw_t)  # noqa: E731
+            out, t_1 = timed(torch, call)
+            if name in REPEATED:  # a fill's second launch gets a fresh zeroed buffer
+                again = call if "out" not in kw_t else (
+                    lambda: kernel(*args, **{**kw_t, "out": torch.zeros_like(kw_t["out"])}))
+                check_repeatable(torch, f"{label}: {name} {key}", again,
+                                 tuple(t.clone() for t in rsf_outputs(out)))
+            t_k = cuda_ms(call, TIMING_REPS)
             _, t_p = timed(torch, lambda: plain(*args, **kw_t))
-            f, b = cost(torch, args, kw, out)
+            f, b = (float(x) for x in cost(torch, args, kw, out))
+            del out
             t_b, _ = bound_ms(f, b)
-            print(f"{label}: {name} {key} G={args[0].shape[0]}: rel err {rel:.3e}; "
-                  f"kernel {t_k:.3f} ms, plain {t_p:.3f} ms, bound {t_b:.4f} ms", flush=True)
-            ms, plain_ms, worst = ms + t_k, plain_ms + t_p, max(worst, ab)
+            t_l = library(torch, args, kw) if library is not None else None
+            print(f"{label}: {name} {key} G={args[0].shape[0]}: rel err {rel:.3e}"
+                  + ("; repeatable" if name in REPEATED else "")
+                  + f"; kernel {t_k:.3f} ms (one call {t_1:.3f} ms), plain {t_p:.3f} ms, bound "
+                  f"{t_b:.4f} ms" + (f", library {t_l:.3f} ms" if t_l is not None else ""),
+                  flush=True)
+            ms, ms_1, plain_ms, worst = ms + t_k, ms_1 + t_1, plain_ms + t_p, max(worst, ab)
             bnd, flops, nbyte = bnd + t_b, flops + f, nbyte + b
-            if library is not None:
-                lib_ms += library(torch, args, kw)
+            lib_ms += t_l or 0.0
         by = bound_ms(flops, nbyte)[1]
-        print(f"{label}: {name} on {len(groups)} main-path groups: kernel {ms:.3f} ms, "
-              f"plain {plain_ms:.3f} ms, bound {bnd:.4f} ms ({by}; {flops:.3e} operations, "
-              f"{nbyte:.3e} bytes)"
-              + (f", torch.linalg.det on the gathered batches {lib_ms:.3f} ms"
-                 if library is not None else ""), flush=True)
+        print(f"{label}: {name} on {len(groups)} main-path groups: kernel {ms:.3f} ms (one "
+              f"call each {ms_1:.3f} ms), plain {plain_ms:.3f} ms, bound {bnd:.4f} ms ({by}; "
+              f"{flops:.3e} operations, {nbyte:.3e} bytes)"
+              + (f", {LIBRARY_LABEL[name]} {lib_ms:.3f} ms" if library is not None else ""),
+              flush=True)
         rec[name] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
-                     "bound_by": by, "library_ms": lib_ms if library is not None else None}
+                     "bound_by": by,
+                     "library_ms": lib_ms if library is not None and name not in COMPOSITION
+                     else None}
+        if name in COMPOSITION:
+            rec[name]["composition_ms"] = lib_ms
     return rec
 
 
@@ -703,6 +805,66 @@ def slater_capture(slater, fw, every=()):
         for n, f in orig.items():
             setattr(slater, n, f)
         fw.fw_frame_slab = slab
+
+
+METER_SLEEP_CYCLES = 2_000_000
+"""Device clock cycles (~1 ms on an H100) that :func:`conversion_meter`
+keeps the stream busy before each metered launch, so that the event
+before the launch completes only after the wrapper's host work has queued
+the kernel and the events bracket its device work alone (with det_fill's
+slot upload, a few bytes).  The metered conversion is timed by no one."""
+
+
+@contextlib.contextmanager
+def conversion_meter(torch, slater, kernels):
+    """Meters every K1/K2 launch of the conversions run inside it: wraps
+    ``slater.det_fill`` and ``slater.site_overlap_schur`` and yields, per
+    kernel (``det_fill``, ``site_overlap_schur``, ``site_overlap_schur_gmem``
+    by the width's dispatch), its launches, its device milliseconds (CUDA
+    events around each call after a short device sleep; no
+    synchronisation) and the operations and bytes of :func:`det_fill_cost`
+    / :func:`overlap_cost` summed over every launch, computed on the device
+    at the call; no argument is kept.  Read the totals after the block."""
+    names = ("det_fill", "site_overlap_schur")
+    orig = {n: getattr(slater, n) for n in names}
+    per = {k: {"launches": 0, "events": [], "flops": 0.0, "bytes": 0.0}
+           for k in ("det_fill", "site_overlap_schur", "site_overlap_schur_gmem")}
+
+    def metered(key, fn, cost, args, kw, **extra):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        torch.cuda._sleep(METER_SLEEP_CYCLES)
+        ev[0].record()
+        out = fn(*args, **kw, **extra)
+        ev[1].record()
+        f, b = cost(torch, args, kw, out)
+        rec = per[key]
+        rec["launches"] += 1
+        rec["events"].append(ev)
+        rec["flops"] = rec["flops"] + f
+        rec["bytes"] = rec["bytes"] + b
+        return out
+
+    def fill(*args, out=None, slot=None, **kw):
+        return metered("det_fill", orig["det_fill"], det_fill_cost, args, kw, out=out,
+                       slot=slot)
+
+    def overlap(*args, **kw):
+        key = ("site_overlap_schur" if kernels.site_overlap_fits_smem(args[2].shape[-1],
+                                                                      args[0].dtype)
+               else "site_overlap_schur_gmem")
+        return metered(key, orig["site_overlap_schur"], overlap_cost, args, kw)
+
+    slater.det_fill, slater.site_overlap_schur = fill, overlap
+    try:
+        yield per
+    finally:
+        for n, f in orig.items():
+            setattr(slater, n, f)
+        torch.cuda.synchronize()
+        for rec in per.values():
+            rec["ms"] = sum(a.elapsed_time(b) for a, b in rec.pop("events"))
+            rec["flops"], rec["bytes"] = float(rec["flops"]), float(rec["bytes"])
+            rec["bound_ms"], rec["bound_by"] = bound_ms(rec["flops"], rec["bytes"])
 
 
 def check_captured_slater(torch, kernels, label, cap):
@@ -940,8 +1102,8 @@ def device_profile(torch, run, label):
           f"(sum of kernel and copy times; idle share {1 - busy / wall:.1%})", flush=True)
     for us, key, count in sorted(rows, reverse=True)[:8]:
         print(f"  {us / 1e3:10.2f} ms  x{count:<6d} {key[:90]}", flush=True)
-    for kernel in ("det_fill_kernel", "site_overlap_schur_kernel",
-                   "site_overlap_schur_gmem_kernel", "fw_frame_slab_kernel", "pf_fill_kernel",
+    for kernel in ("det_fill_kernel", "site_overlap_kernel", "site_schur_kernel",
+                   "fw_frame_slab_kernel", "pf_fill_kernel",
                    "bdg_overlap_kernel", "bdg_overlap_gmem_kernel", "swap_tables_kernel",
                    "swap_fill_kernel", "det_rows_kernel", "rsf_apply_kernel",
                    "rsf_gram_kernel", "rsf_combine_kernel", "rsf_ritz_shift_kernel",
@@ -1386,10 +1548,15 @@ def phase_fw_kernels(torch, kernels, testing):
                   f"rel err {rel:.3e}, repeatable; kernel {t_k:.3f} ms, plain {t_p:.3f} ms, "
                   f"torch.bmm {t_l:.3f} ms", flush=True)
             worst["fw_frame_slab"] = max(worst["fw_frame_slab"], ab)
-    # K2 global-memory kernel: mb = 192 and 320 (float64), 128 (complex128)
-    for kb, sb, dt in ((160, 32, "float64"), (288, 32, "float64"), (96, 32, "complex128")):
+    # K2's wide wrapper: mb = 192 and 320 (float64), 128 (complex128) in a
+    # cluster; then always blocks no cluster holds, which take the
+    # global-memory elimination: float64 kb=384 at mb=416, complex128
+    # kb=160 at mb=320, float64 mb=600 (L=640)
+    for kb, sb, dt, L in ((160, 32, "float64", 512), (288, 32, "float64", 512),
+                          (96, 32, "complex128", 512), (384, 32, "float64", 512),
+                          (160, 160, "complex128", 512), (64, 536, "float64", 640)):
         for mode in ("left", "right"):
-            args, kw = testing.random_site_overlap_case(kb + sb, G=16, L=512, kb=kb, sb=sb,
+            args, kw = testing.random_site_overlap_case(kb + sb, G=16, L=L, kb=kb, sb=sb,
                                                         mode=mode, dtype=dt)
             a = [torch.as_tensor(x, device=dev) for x in args]
             for i in (2, 3, 4, 6, 7, 8):
@@ -1399,10 +1566,16 @@ def phase_fw_kernels(torch, kernels, testing):
             if not rel <= KERNEL_RTOL:
                 raise AssertionError(f"site_overlap_schur_gmem mb={kb + sb} {mode} {dt}: rel "
                                      f"err {rel:.3e} > {KERNEL_RTOL}")
-            t_k = cuda_ms(lambda: kernels.site_overlap_schur_gmem(*a, **kw), 3)
+            call = lambda: kernels.site_overlap_schur_gmem(*a, **kw)  # noqa: E731
+            check_repeatable(torch, f"phase 3c: site_overlap_schur_gmem kb={kb} sb={sb} {mode} "
+                             f"{dt}", call, call())
+            t_k = cuda_ms(call, 3)
             t_p = cuda_ms(lambda: kernels.site_overlap_schur_plain(*a, **kw), 1)
-            print(f"phase 3c: site_overlap_schur_gmem {mode} {dt} G=16 L=512 kb={kb} sb={sb}: "
-                  f"rel err {rel:.3e}; kernel {t_k:.3f} ms, plain {t_p:.3f} ms", flush=True)
+            nc = kernels.schur_layout(kb, kb + sb, a[0].dtype, wide=True)[0]
+            print(f"phase 3c: site_overlap_schur_gmem {mode} {dt} G=16 L={L} kb={kb} sb={sb} ("
+                  + (f"a cluster of {nc}" if nc else "the global-memory elimination")
+                  + f"): rel err {rel:.3e}, repeatable; kernel {t_k:.3f} ms, plain {t_p:.3f} ms",
+                  flush=True)
             worst["site_overlap_schur_gmem"] = max(worst["site_overlap_schur_gmem"], ab)
     # K4 global-memory kernel: nb = 96 and 128, both sweep layouts
     for nb, k1, k2, x in ((96, 24, 24, 80), (128, 32, 24, 120)):
@@ -1611,7 +1784,9 @@ def phase_slice(torch, np, slater, fw, kernels, profiling):
     canonical_form_finite round on a copy of the state, a device profile of
     one stream block (:func:`stream_block`); then one conversion with the
     default exact device frontend, timed for the frontend comparison and
-    held against the FW state (:func:`frontend_checks`).  Returns the
+    held against the FW state (:func:`frontend_checks`), and one more,
+    untimed, with every K1/K2 launch metered (:func:`conversion_meter`:
+    device time, work and bound over the whole conversion).  Returns the
     launches, the records and the exact frontend's states (bench config 1
     and its disordered twin), warm time and eigh_batch stage, which phase 9
     compares with."""
@@ -1629,10 +1804,19 @@ def phase_slice(torch, np, slater, fw, kernels, profiling):
         torch.cuda.synchronize()
         t_ex = time.perf_counter() - t0
     print(f"phase 7: exact device frontend (the default): warm conversion {t_ex:.3f} s (stages "
-          f"synchronised); max_memory_allocated "
+          f"synchronised; no meter); max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, of it {resident / 2**20:.1f} "
           f"MiB resident before the run", flush=True)
     print(prof.report(), flush=True)
+    # the meter's sleeps, events and cost sums run in a conversion of their
+    # own, so that they touch neither the time above nor its stages
+    with conversion_meter(torch, slater, kernels) as conv:
+        slater.H_to_MPS(H, {"chi_max": 512}, device="cuda")
+    for name, c in conv.items():
+        print(f"phase 7: exact conversion, {name}: {c['launches']} launches, device "
+              f"{c['ms']:.3f} ms (events around each launch), bound {c['bound_ms']:.4f} ms "
+              f"({c['bound_by']}; {c['flops']:.4e} operations, {c['bytes']:.4e} bytes)",
+              flush=True)
     ex_d = frontend_checks(torch, np, slater, fw, H, 512, res["raw"], exact)
     return res["launches"], res["rec"], {"exact": exact, "exact_dis": ex_d, "t_exact": t_ex,
                                          "eigh_exact": prof.seconds.get("eigh_batch", 0.0)}
@@ -1928,34 +2112,35 @@ def pf_gather_cost(torch, args, out):
 
 
 def det_rows_library_ms(torch, args, kw):
-    """Milliseconds of torch.linalg.det on each matrix's pre-gathered
-    determinant batch, summed; the gathers are left out."""
+    """Milliseconds of one torch.linalg.det over every matrix's pre-gathered
+    determinant batch (:func:`batched_library_ms`); the gathers are left
+    out."""
     from temfpy_torch.ops.linalg import block_diag_identity_pad, gather_submatrices
 
     M, ib, ik, _scale = args
-    total = 0.0
-    for g in range(M.shape[0]):
-        sub = gather_submatrices(block_diag_identity_pad(M[g], ib.shape[-1]), ib[g], ik[g],
-                                 cross=kw.get("cross", False))
-        total += timed(torch, lambda: torch.linalg.det(sub))[1]
-    return total
+    return batched_library_ms(
+        torch, range(M.shape[0]),
+        lambda g: gather_submatrices(block_diag_identity_pad(M[g], ib.shape[-1]), ib[g], ik[g],
+                                     cross=kw.get("cross", False)).flatten(0, -3),
+        torch.linalg.det)
 
 
 def swap_fill_library_ms(torch, args, kw):
-    """Milliseconds of torch.linalg.det on each unit's pre-assembled
-    bordered matrices S (all P_b pairs), summed; the assembly and the
-    scatter are left out."""
+    """Milliseconds of one torch.linalg.det over every unit's pre-assembled
+    bordered matrices S (all P_b pairs; :func:`batched_library_ms`); the
+    assembly and the scatter are left out."""
     from temfpy_torch.ops.linalg import block_diag_identity_pad, swap_bordered
 
     M, _det, _D0, G, P, T2, T3, Rin, Rout, Rpos, _sgr, Cin, Cout, Cpos, _sgc, pr, pc = args[:17]
-    s_b, total = kw["s_b"], 0.0
-    for u in range(M.shape[0]):
+    s_b = kw["s_b"]
+
+    def bordered(u):
         r, c = pr[u].long(), pc[u].long()
-        S = swap_bordered(block_diag_identity_pad(M[u], G.shape[-1]), G[u], P[u], T2[u], T3[u],
-                          *(t[u][i][:, :s_b] for t, i in ((Rin, r), (Rout, r), (Rpos, r),
-                                                          (Cin, c), (Cout, c), (Cpos, c))))
-        total += timed(torch, lambda: torch.linalg.det(S))[1]
-    return total
+        return swap_bordered(block_diag_identity_pad(M[u], G.shape[-1]), G[u], P[u], T2[u],
+                             T3[u], *(t[u][i][:, :s_b] for t, i in ((Rin, r), (Rout, r),
+                                                                    (Rpos, r), (Cin, c),
+                                                                    (Cout, c), (Cpos, c))))
+    return batched_library_ms(torch, range(M.shape[0]), bordered, torch.linalg.det)
 
 
 CAPTURED.update({

@@ -102,7 +102,8 @@ __device__ __forceinline__ int block_argmax_first(double v, int i) {
 // thread, by LU with partial pivoting: the first row of maximal |A[i, k]|
 // (i >= k) is the pivot, as in temfpy_tpu/ops/linalg.py:_lu_det_body; a
 // zero pivot makes the determinant 0 without dividing by it.  A is
-// overwritten.  Used by det_fill, det_rows and swap_fill.
+// overwritten.  Used by det_rows and swap_fill (det_fill keeps its rows in
+// registers, csrc/det_fill.cu).
 template <typename T, int W>
 __device__ __forceinline__ T lu_det_private(T* A, int w) {
     T det = Num<T>::one();

@@ -19,119 +19,374 @@
 // site write disjoint entries, so several sites of a group, or several
 // groups, may share a slot.  The wrapper slices the trash row off.
 //
-// What bounds it on the H100: f64 arithmetic of many tiny LUs (w^3/3 FMAs
-// per pair, w <= 64) and the latency of the scattered gathers from M and
-// the index tables.  The design: one thread per pair, the w x w matrix in
-// thread-private memory (registers for w <= 8, local memory cached in L1
-// above), M read straight from global memory (it is a few KB per site and
-// stays in L1/L2), the LU of common.cuh:lu_det_private, no shared memory
-// and no synchronisation, so blocks run fully independently.  The width is a
-// template bound (4, 8, 16, 32, 64) so small buckets get small private arrays.  No allocation, no sync: the
-// kernel runs on the caller's stream.
+// What bounds it on the H100: float64 arithmetic of many tiny LUs (2 c^3 / 3
+// operations for a pair of c occupied orbitals, c <= 64; at bench config 1,
+// L = 1024, 6.4e10 operations in a conversion, ~1 ms at the FP64 peak) and
+// the movement of the pair ids and one value a pair (~0.45 ms).  The
+// parent design held each pair's w x w matrix in one thread with runtime
+// trip counts and indices: nvcc put the whole matrix in local memory at
+// every width (-Xptxas -v: a W^2 x 8 + 4W byte stack frame, PERF.md), each
+// step of the LU streamed it through L1/L2, and every entry was gathered
+// from M in global memory: ~15 ns a pair, 1.4 s for the conversion's 528
+// launches.
+//
+// The design: a segment of S lanes per pair holds the W x W matrix in
+// registers, lane s rows s + S q (fill_lanes: in float64 one thread per
+// pair up to W = 8, then 8 lanes of two rows at W = 16 and 32 lanes of one
+// at W = 32; complex128 halves the rows a lane holds).  Every loop over
+// rows, columns and LU steps is unrolled to the template width W (4, 8,
+// 16, 32), so every register index is a constant.  A pair narrower than W
+// is padded with identity rows and columns (the determinant is unchanged,
+// and so is every rounding: the padded entries add exact zeros and
+// multiply by exact ones).  Rows never move: each lane keeps the logical
+// position of its rows, the pivot search is a segmented shuffle arg-max
+// over rows at or past step k (the first maximal |A[i, k]| in logical
+// order wins, as in temfpy_tpu/ops/linalg.py:_lu_det_body), the pivot
+// row is selected and broadcast by shuffles, and the elimination is
+// A[i, j] -= (A[i, k] / pivot) A[k, j], the parent's arithmetic operation
+// for operation (a zero pivot gives det 0 without a division).  W = 64 is
+// a warp per pair with the matrix in shared memory (64 x 64 values would
+// fill a warp's registers) and the parent's row swaps; no main-path
+// bucket is that wide.  The site's M (m x m, padded to stride m + 1) is
+// staged in shared memory once per block where it fits in 48 KB (m <= 77
+// in float64), and a block loops over `pairs_per_block` pairs of one site
+// (kernels.det_fill_geometry), so every gather reads shared memory; each
+// segment reads its pair's two occupation rows as coalesced loads.  The
+// occupation tables are not staged: a site's tables (up to thousands of
+// rows) do not fit beside M, and each row is read once.  What bounds the
+// design now is its instruction count: per step and lane a shuffle arg-max, a
+// select of the pivot row among the lane's rows and its broadcast, one
+// division per row.  No allocation, no sync: the kernel runs on the
+// caller's stream.
+
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kFillThreads = 256;
+constexpr int kWideThreads = 64;  // W = 64: two warps, one pair each
+constexpr int kStageBytes = 48 * 1024;
+
+// Lanes of a pair's segment (kernels.det_fill_geometry mirrors it): each
+// lane holds W / lanes rows, at most 64 float64 values (128 registers).
 template <typename T, int W>
-__global__ void det_fill_kernel(const T* __restrict__ M, const T* __restrict__ det_always,
-                                const int* __restrict__ occ_b, const int* __restrict__ occ_k,
-                                const int* __restrict__ pr, const int* __restrict__ pc,
-                                const int* __restrict__ tab0, const int* __restrict__ tab1,
-                                const int* __restrict__ tab2, const int* __restrict__ slot,
-                                T* __restrict__ out, int m, int w,
-                                int R_b, int K_b, int P_b, int n0, int n1, int n2, int sel,
-                                int D0p1, int D1, int D2) {
+__host__ __device__ constexpr int fill_lanes() {
+    if (std::is_same<T, double>::value) return W <= 8 ? 1 : (W == 16 ? 8 : 32);
+    return W <= 4 ? 1 : (W == 8 ? 2 : (W == 16 ? 8 : 32));
+}
+
+template <int S>
+__device__ __forceinline__ int shfl(int v, int src) {
+    if constexpr (S == 1) return v;
+    return __shfl_sync(kFull, v, src, S);
+}
+template <int S>
+__device__ __forceinline__ double shfl(double v, int src) {
+    if constexpr (S == 1) return v;
+    return __shfl_sync(kFull, v, src, S);
+}
+template <int S>
+__device__ __forceinline__ c128 shfl(c128 v, int src) {
+    if constexpr (S == 1) return v;
+    return c128{__shfl_sync(kFull, v.re, src, S), __shfl_sync(kFull, v.im, src, S)};
+}
+
+template <typename T>
+__device__ __forceinline__ double pivot_mag(T a) {
+    const double v = Num<T>::mag(a);
+    return v == v ? v : -0.5;  // NaN: loses to any number, beats "no candidate"
+}
+
+template <typename T>
+__device__ __forceinline__ void scatter(const int* tab0, const int* tab1, const int* tab2,
+                                        const int* slot, T* out, int g, int r, int c, int n0,
+                                        int n1, int n2, int sel, int D0p1, int D1, int D2,
+                                        T v) {
+    const int c0 = tab0[(long long)g * n0 + ((sel & 1) ? c : r)];
+    const int c1 = tab1[(long long)g * n1 + ((sel & 2) ? c : r)];
+    const int c2 = n2 ? tab2[(long long)g * n2 + ((sel & 4) ? c : r)] : 0;
+    out[(((long long)slot[g] * D0p1 + c0) * D1 + c1) * D2 + c2] = v;
+}
+
+// W <= 32: a segment of S lanes per pair, the matrix in registers.
+template <typename T, int W>
+__global__ void __launch_bounds__(kFillThreads)
+    det_fill_kernel(const T* __restrict__ M, const T* __restrict__ det_always,
+                    const int* __restrict__ occ_b, const int* __restrict__ occ_k,
+                    const int* __restrict__ pr, const int* __restrict__ pc,
+                    const int* __restrict__ tab0, const int* __restrict__ tab1,
+                    const int* __restrict__ tab2, const int* __restrict__ slot,
+                    T* __restrict__ out, int m, int w, int R_b, int K_b, int P_b, int n0, int n1,
+                    int n2, int sel, int D0p1, int D1, int D2, int pairs_per_block,
+                    int stage_m) {
+    constexpr int S = fill_lanes<T, W>();  // lanes per pair
+    constexpr int ROWS = W / S;            // rows per lane: lane s holds rows s + S q
+    constexpr int PER_WARP = 32 / S;       // pairs per warp
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+
     const int g = blockIdx.y;
-    const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (p >= P_b) return;
-    const int r = pr[(long long)g * P_b + p];
-    const int c = pc[(long long)g * P_b + p];
-    const int* rb = occ_b + ((long long)g * R_b + r) * w;
-    const int* ck = occ_k + ((long long)g * K_b + c) * w;
-    const T* Mg = M + (long long)g * m * m;
-
-    T A[W * W];
-    int ci[W];
-    for (int t = 0; t < w; ++t) ci[t] = ck[t];
-    for (int s = 0; s < w; ++s) {
-        const int a = rb[s];
-        for (int t = 0; t < w; ++t) {
-            const int b = ci[t];
-            T v;
-            if (a < m && b < m)
-                v = Mg[(long long)a * m + b];
-            else
-                v = (a == b) ? Num<T>::one() : Num<T>::zero();
-            A[s * W + t] = v;
-        }
+    const T* Mp = M + (long long)g * m * m;
+    int ld = m;
+    if (stage_m) {
+        T* sM = reinterpret_cast<T*>(smem_raw);
+        for (int e = threadIdx.x; e < m * m; e += blockDim.x)
+            sM[(e / m) * (m + 1) + e % m] = Mp[e];
+        __syncthreads();
+        Mp = sM;
+        ld = m + 1;
     }
+    const int lane = threadIdx.x & 31, seg = lane / S, sl = lane % S;
+    const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+    const unsigned segmask = S == 32 ? kFull : ((1u << S) - 1u) << (seg * S);
+    const int p_end = min(P_b, (blockIdx.x + 1) * pairs_per_block);
+    const T da = det_always[g];
+    const T one = Num<T>::one(), zero = Num<T>::zero();
 
-    // LU with partial pivoting; first maximal |A[i, k]| wins, as in
-    // temfpy_tpu/ops/linalg.py:_lu_det_body
-    T det = lu_det_private<T, W>(A, w);
-    det = det * det_always[g];
+    // the loop is uniform over a warp; segments past p_end compute a copy
+    // of the last pair (every lane must join the shuffles) and write nothing
+    for (int p0 = blockIdx.x * pairs_per_block + warp * PER_WARP; p0 < p_end;
+         p0 += nwarps * PER_WARP) {
+        const int p = p0 + seg;
+        const bool valid = p < p_end;
+        const long long gp = (long long)g * P_b + (valid ? p : p_end - 1);
+        const int r = pr[gp], c = pc[gp];
+        const int* rb = occ_b + ((long long)g * R_b + r) * w;
+        const int* ck = occ_k + ((long long)g * K_b + c) * w;
+        int arow[ROWS], bcol[ROWS], pos[ROWS];
+#pragma unroll
+        for (int q = 0; q < ROWS; ++q) {
+            const int t = sl + S * q;
+            arow[q] = t < w ? rb[t] : -1;  // -1: an identity row or column of the padding
+            bcol[q] = t < w ? ck[t] : -1;
+            pos[q] = t;
+        }
+        T A[ROWS][W];
+#pragma unroll
+        for (int t = 0; t < W; ++t) {
+            const int b = shfl<S>(bcol[t / S], t % S);
+#pragma unroll
+            for (int q = 0; q < ROWS; ++q) {
+                const int a = arow[q];
+                T v;
+                if (a < 0 || b < 0)
+                    v = (sl + S * q == t) ? one : zero;
+                else if (a < m && b < m)
+                    v = Mp[a * ld + b];
+                else
+                    v = (a == b) ? one : zero;
+                A[q][t] = v;
+            }
+        }
 
-    const int i0 = (sel & 1) ? c : r;
-    const int i1 = (sel & 2) ? c : r;
-    const int i2 = (sel & 4) ? c : r;
-    const int c0 = tab0[(long long)g * n0 + i0];
-    const int c1 = tab1[(long long)g * n1 + i1];
-    const int c2 = n2 ? tab2[(long long)g * n2 + i2] : 0;
-    out[(((long long)slot[g] * D0p1 + c0) * D1 + c1) * D2 + c2] = det;
+        T det = one;
+#pragma unroll
+        for (int k = 0; k < W; ++k) {
+            // pivot: the first (in logical order) maximal |A[i, k]|, i >= k
+            double bv = -1.0;
+            int bp = 0x7fffffff;
+#pragma unroll
+            for (int q = 0; q < ROWS; ++q) {
+                const double v = pivot_mag(A[q][k]);
+                if (pos[q] >= k && (v > bv || (v == bv && pos[q] < bp))) {
+                    bv = v;
+                    bp = pos[q];
+                }
+            }
+#pragma unroll
+            for (int d = S / 2; d > 0; d >>= 1) {
+                const double v2 = __shfl_xor_sync(kFull, bv, d, S);
+                const int p2 = __shfl_xor_sync(kFull, bp, d, S);
+                if (v2 > bv || (v2 == bv && p2 < bp)) {
+                    bv = v2;
+                    bp = p2;
+                }
+            }
+            int mine = -1;
+#pragma unroll
+            for (int q = 0; q < ROWS; ++q)
+                if (pos[q] == bp) mine = q;
+            int src = 0, h = mine;  // the pivot's lane, and its row there
+            if constexpr (S > 1) {
+                src = __ffs(__ballot_sync(kFull, mine >= 0) & segmask) - 1 - seg * S;
+                h = ROWS > 1 ? shfl<S>(mine, src) : 0;
+            }
+            T hk = A[0][k];
+#pragma unroll
+            for (int q = 1; q < ROWS; ++q)
+                if (h == q) hk = A[q][k];
+            const T piv = shfl<S>(hk, src);
+            if (bp != k) det = -det;
+            det = det * piv;
+            const T safe = Num<T>::is_zero(piv) ? one : piv;
+            T f[ROWS];
+#pragma unroll
+            for (int q = 0; q < ROWS; ++q) {
+                pos[q] = pos[q] == k ? bp : (pos[q] == bp ? k : pos[q]);
+                f[q] = A[q][k] / safe;
+            }
+#pragma unroll
+            for (int j = k + 1; j < W; ++j) {
+                T hj = A[0][j];
+#pragma unroll
+                for (int q = 1; q < ROWS; ++q)
+                    if (h == q) hj = A[q][j];
+                const T pj = shfl<S>(hj, src);
+#pragma unroll
+                for (int q = 0; q < ROWS; ++q)
+                    if (pos[q] > k) A[q][j] = A[q][j] - f[q] * pj;
+            }
+        }
+        if (valid && sl == 0)
+            scatter(tab0, tab1, tab2, slot, out, g, r, c, n0, n1, n2, sel, D0p1, D1, D2,
+                    det * da);
+    }
+}
+
+// W = 64: a warp per pair, the 64 x 64 matrix in shared memory (it would
+// take a warp's whole register file); the parent's LU with physical row
+// swaps, the rows spread over the lanes.
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
+    det_fill_wide_kernel(const T* __restrict__ M, const T* __restrict__ det_always,
+                         const int* __restrict__ occ_b, const int* __restrict__ occ_k,
+                         const int* __restrict__ pr, const int* __restrict__ pc,
+                         const int* __restrict__ tab0, const int* __restrict__ tab1,
+                         const int* __restrict__ tab2, const int* __restrict__ slot,
+                         T* __restrict__ out, int m, int w, int R_b, int K_b, int P_b, int n0,
+                         int n1, int n2, int sel, int D0p1, int D1, int D2,
+                         int pairs_per_block) {
+    constexpr int W = 64, LD = W + 1;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    T* A = reinterpret_cast<T*>(smem_raw) + warp * W * LD;
+    const int g = blockIdx.y;
+    const T* Mg = M + (long long)g * m * m;
+    const int p_end = min(P_b, (blockIdx.x + 1) * pairs_per_block);
+    const T da = det_always[g];
+    const T one = Num<T>::one(), zero = Num<T>::zero();
+    for (int p = blockIdx.x * pairs_per_block + warp; p < p_end; p += kWideThreads / 32) {
+        const long long gp = (long long)g * P_b + p;
+        const int r = pr[gp], c = pc[gp];
+        const int* rb = occ_b + ((long long)g * R_b + r) * w;
+        const int* ck = occ_k + ((long long)g * K_b + c) * w;
+        for (int t = lane; t < W; t += 32) {
+            const int b = t < w ? ck[t] : -1;
+            for (int s = 0; s < W; ++s) {
+                const int a = s < w ? rb[s] : -1;
+                A[s * LD + t] = (a < 0 || b < 0) ? ((s == t) ? one : zero)
+                                                 : identity_ext(Mg, m, a, b);
+            }
+        }
+        __syncwarp();
+        T det = one;
+        for (int k = 0; k < W; ++k) {
+            double bv = -1.0;
+            int bp = 0x7fffffff;
+            for (int i = k + lane; i < W; i += 32) {
+                const double v = pivot_mag(A[i * LD + k]);
+                if (v > bv || (v == bv && i < bp)) {
+                    bv = v;
+                    bp = i;
+                }
+            }
+            for (int d = 16; d > 0; d >>= 1) {
+                const double v2 = __shfl_xor_sync(kFull, bv, d);
+                const int p2 = __shfl_xor_sync(kFull, bp, d);
+                if (v2 > bv || (v2 == bv && p2 < bp)) {
+                    bv = v2;
+                    bp = p2;
+                }
+            }
+            if (bp != k) {
+                for (int j = k + lane; j < W; j += 32) {
+                    const T tmp = A[k * LD + j];
+                    A[k * LD + j] = A[bp * LD + j];
+                    A[bp * LD + j] = tmp;
+                }
+                det = -det;
+                __syncwarp();
+            }
+            const T piv = A[k * LD + k];
+            det = det * piv;
+            const T safe = Num<T>::is_zero(piv) ? one : piv;
+            for (int i = k + 1 + lane; i < W; i += 32) {
+                const T f = A[i * LD + k] / safe;
+                for (int j = k + 1; j < W; ++j) A[i * LD + j] = A[i * LD + j] - f * A[k * LD + j];
+            }
+            __syncwarp();
+        }
+        if (lane == 0)
+            scatter(tab0, tab1, tab2, slot, out, g, r, c, n0, n1, n2, sel, D0p1, D1, D2,
+                    det * da);
+        __syncwarp();
+    }
 }
 
 template <typename T, int W>
-void launch(const void* M, const void* det_always, const int* occ_b, const int* occ_k,
-            const int* pr, const int* pc, const int* tab0, const int* tab1, const int* tab2,
-            const int* slot, void* out, int G, int m, int w, int R_b, int K_b, int P_b, int n0,
-            int n1, int n2, int sel, int D0p1, int D1, int D2, cudaStream_t stream) {
-    const int threads = 128;
-    dim3 grid((P_b + threads - 1) / threads, G);
-    det_fill_kernel<T, W><<<grid, threads, 0, stream>>>(
-        (const T*)M, (const T*)det_always, occ_b, occ_k, pr, pc, tab0, tab1, tab2, slot,
-        (T*)out, m, w, R_b, K_b, P_b, n0, n1, n2, sel, D0p1, D1, D2);
+int launch(const void* M, const void* det_always, const int* occ_b, const int* occ_k,
+           const int* pr, const int* pc, const int* tab0, const int* tab1, const int* tab2,
+           const int* slot, void* out, int G, int m, int w, int R_b, int K_b, int P_b, int n0,
+           int n1, int n2, int sel, int D0p1, int D1, int D2, int pairs_per_block,
+           cudaStream_t stream) {
+    dim3 grid((P_b + pairs_per_block - 1) / pairs_per_block, G);
+    if constexpr (W == 64) {
+        return (int)launch_dynamic_smem<det_fill_wide_kernel<T>>(
+            grid, kWideThreads, (int)(kWideThreads / 32 * W * (W + 1) * sizeof(T)), stream,
+            (const T*)M, (const T*)det_always, occ_b, occ_k, pr, pc, tab0, tab1, tab2, slot,
+            (T*)out, m, w, R_b, K_b, P_b, n0, n1, n2, sel, D0p1, D1, D2, pairs_per_block);
+    } else {
+        const size_t staged = (size_t)m * (m + 1) * sizeof(T);
+        const int stage_m = staged <= kStageBytes;
+        det_fill_kernel<T, W><<<grid, kFillThreads, stage_m ? staged : 0, stream>>>(
+            (const T*)M, (const T*)det_always, occ_b, occ_k, pr, pc, tab0, tab1, tab2, slot,
+            (T*)out, m, w, R_b, K_b, P_b, n0, n1, n2, sel, D0p1, D1, D2, pairs_per_block,
+            stage_m);
+        return (int)cudaGetLastError();
+    }
 }
 
 template <typename T>
 int dispatch(const void* M, const void* det_always, const int* occ_b, const int* occ_k,
              const int* pr, const int* pc, const int* tab0, const int* tab1, const int* tab2,
              const int* slot, void* out, int G, int m, int w, int R_b, int K_b, int P_b, int n0,
-             int n1, int n2, int sel, int D0p1, int D1, int D2, cudaStream_t stream) {
-#define TF_LAUNCH(WW)                                                                         \
-    launch<T, WW>(M, det_always, occ_b, occ_k, pr, pc, tab0, tab1, tab2, slot, out, G, m, w, \
-                  R_b, K_b, P_b, n0, n1, n2, sel, D0p1, D1, D2, stream)
-    if (w <= 4)
-        TF_LAUNCH(4);
-    else if (w <= 8)
-        TF_LAUNCH(8);
-    else if (w <= 16)
-        TF_LAUNCH(16);
-    else if (w <= 32)
-        TF_LAUNCH(32);
-    else if (w <= 64)
-        TF_LAUNCH(64);
-    else
-        return (int)cudaErrorInvalidValue;
+             int n1, int n2, int sel, int D0p1, int D1, int D2, int pairs_per_block,
+             cudaStream_t stream) {
+#define TF_LAUNCH(WW)                                                                        \
+    return launch<T, WW>(M, det_always, occ_b, occ_k, pr, pc, tab0, tab1, tab2, slot, out, \
+                         G, m, w, R_b, K_b, P_b, n0, n1, n2, sel, D0p1, D1, D2,            \
+                         pairs_per_block, stream)
+    if (w <= 4) TF_LAUNCH(4);
+    if (w <= 8) TF_LAUNCH(8);
+    if (w <= 16) TF_LAUNCH(16);
+    if (w <= 32) TF_LAUNCH(32);
+    if (w <= 64) TF_LAUNCH(64);
 #undef TF_LAUNCH
-    return (int)cudaGetLastError();
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// `pairs_per_block`: the pairs of one site each block takes
+// (kernels.det_fill_geometry); the grid is (ceil(P_b / pairs_per_block), G)
+// blocks of 256 threads (64 at W = 64).
 extern "C" int tf_det_fill(int dtype, const void* M, const void* det_always, const int* occ_b,
                            const int* occ_k, const int* pr, const int* pc, const int* tab0,
                            const int* tab1, const int* tab2, const int* slot, void* out, int G,
                            int m, int w, int R_b, int K_b, int P_b, int n0, int n1, int n2,
-                           int sel, int D0p1, int D1, int D2, void* stream) {
+                           int sel, int D0p1, int D1, int D2, int pairs_per_block,
+                           void* stream) {
     if (G == 0 || P_b == 0) return (int)cudaSuccess;
+    if (pairs_per_block <= 0) return (int)cudaErrorInvalidValue;
     if (dtype == TF_F64)
         return dispatch<double>(M, det_always, occ_b, occ_k, pr, pc, tab0, tab1, tab2, slot, out,
                                 G, m, w, R_b, K_b, P_b, n0, n1, n2, sel, D0p1, D1, D2,
-                                (cudaStream_t)stream);
+                                pairs_per_block, (cudaStream_t)stream);
     if (dtype == TF_C128)
         return dispatch<c128>(M, det_always, occ_b, occ_k, pr, pc, tab0, tab1, tab2, slot, out,
                               G, m, w, R_b, K_b, P_b, n0, n1, n2, sel, D0p1, D1, D2,
-                              (cudaStream_t)stream);
+                              pairs_per_block, (cudaStream_t)stream);
     return (int)cudaErrorInvalidValue;
 }

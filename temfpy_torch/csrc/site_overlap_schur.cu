@@ -5,365 +5,564 @@
 // _site_overlap_group), which calls ops/linalg.py:gauss_solve_det
 // (_gauss_solve_det_implicit on accelerators).
 //
-// One thread block per site g.  Column i of the bra orbital matrix vb
-// (L x mb) is described by (col, kind, row, sign): kind 0 is frame column
-// `col` of frames_b[g], kind 1 the one-hot vector at `row`, kind 2 zero; the
-// column is multiplied by `sign`.  Likewise vk from frames_k[g].  Then
+// Per site g, column i of the bra orbital matrix vb (L x mb) is described by
+// (col, kind, row, sign): kind 0 is frame column `col` of frames_b[g], kind 1
+// the one-hot vector at `row`, kind 2 zero; the column is multiplied by
+// `sign`.  Likewise vk from frames_k[g].  Then
 //   O = vb^H vk                                   (mb x mb)
 //   left mode:  A = O[:kb, :kb], B = O[:kb, kb:], C = O[kb:, :kb], D = O[kb:, kb:]
 //   right mode: A = O[-kb:, -kb:], B = O[-kb:, :-kb], C = O[:-kb, -kb:], D = O[:-kb, :-kb]
 //   det_out[g] = det A,  S_out[g] = D - C A^{-1} B     (sb x sb, sb = mb - kb)
-// Right mode is left mode on O with rows and columns rotated by sb, so the
-// kernel stores O rotated by `off` (0 for left, sb for right) and runs one
-// code path.  A^{-1}B comes from Gauss-Jordan with partial pivoting on
-// [A | B], the elimination of temfpy_tpu/ops/linalg.py:gauss_solve_det.
+// Right mode is left mode on O with rows and columns rotated by sb, so O is
+// stored rotated by `off` (0 for left, sb for right) and one code path runs.
+// A^{-1} B comes from Gauss-Jordan with partial pivoting on [A | B], the
+// elimination of temfpy_tpu/ops/linalg.py:gauss_solve_det.
 //
-// What bounds it on the H100: little arithmetic (L mb^2 FMAs for O, kb^2 mb
-// for the elimination, per site) but a serial chain of kb pivot steps, each
-// a reduction plus a block-wide synchronisation; and the frame reads, whose
-// columns are strided in memory.  The design: O lives in shared memory
-// (mb^2 entries), one block per site so the sites of a group run in
-// parallel on different SMs, the pivot search by one thread (kb <= a few
-// dozen), each elimination step spread over the block.  No allocation, no
-// sync with the host: the kernel runs on the caller's stream.
+// What bounds it on the H100: the overlap's L mb^2 multiply-adds a site
+// (85 M at L = 1024, mb = 288) and the elimination's kb^2 mb (19 M at kb =
+// 256), 7.7e10 operations in bench config 1's L = 1024 conversion, ~1.2 ms
+// at the FP64 tensor-core peak; and the elimination's serial chain of kb
+// pivot steps.  The parent design gave each site one block (a group of
+// ~60 sites filled under half of the card's 132 SMs), formed O on CUDA
+// cores (whole L-long dot products per thread, or 32 x 32 tiles with
+// synchronous 16-row steps), searched pivots with one thread, and ran the
+// rank-one updates of sites wider than shared memory (mb > 169) through
+// L2: 462 ms for the conversion's 70 launches.
+//
+// The design: two launches.  (1) site_overlap_kernel forms O on a grid of
+// (64 x 64 tile of O, site) blocks, hundreds per group: float64 on the
+// FP64 tensor cores (mma.sync m16n8k8, common.cuh:dmma_16x8x8) fed from a
+// cp.async ring of 16-row stages (6 deep; 3 in complex128, which runs the
+// same tiles on CUDA cores), eight warps a block; a one-hot or zero column
+// is staged as its values, so it costs no branch in the product, and each
+// thread finds its staged column's source once; the signs and the
+// rotation are applied in the epilogue; each entry is one chain of fused
+// multiply-adds in ascending frame row, as in the parent.  O goes to the
+// caller's G x mb x mb workspace.  (2) site_schur_kernel factors [A | B]
+// and forms S, one thread-block cluster per site: the cluster's nc blocks
+// (kernels.schur_layout, up to 8) each hold a slice of the rows in
+// registers (a warp a few rows, a lane a few columns of each), because a
+// rank-one update through shared memory (four accesses an entry) set the
+// time of a step.  Rows never move: each keeps its logical position, a
+// step's pivot is an arg-max over the block's warps, then over the
+// cluster's blocks through distributed shared memory (the first maximal
+// |a| in logical order wins, as in the parent), every block reads the
+// winner's published row and scales it, and updates its own rows: one
+// cluster barrier a step, the elimination of the parent operation for
+// operation.  Then S = D - C X is a DMMA tile product whose accumulators
+// start at D (each entry the parent's chain D - C[i, 0] X[0, j] - ...),
+// split over the cluster's warps (CUDA cores for complex128).  An always
+// block that no cluster of 8 holds in registers (mb > 512, or kb past 8
+// blocks' rows: kb > 256 in float64 at mb 385-512; in complex128 kb > 256
+// at mb 257-288, kb > 128 at mb 289-512) takes site_schur_gmem_kernel
+// instead, the same elimination with [A | B] in the workspace, one block a
+// site: slower, on no site of the main path, but every width runs.  The
+// two public wrappers launch the same kernels: site_overlap_schur_gmem
+// forces a cluster of at least two blocks.  No allocation, no sync with
+// the host: the kernels run on the caller's stream.
+
+#include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+namespace cg = cooperative_groups;
 
+// ---- (1) the overlap O = vb^H vk ----
+
+constexpr int kOT = 64;           // O tile edge
+constexpr int kOD = 16;           // frame rows per stage
+constexpr int kOLd = kOT + 4;     // 4 mod 16 doubles: conflict-free DMMA fragment loads
+constexpr int kOThreads = 256;    // eight warps, each 16 x 32 of the tile
+
+// Stages of the cp.async ring (104 KB either way).
 template <typename T>
-__global__ void site_overlap_schur_kernel(const T* __restrict__ frames_b,
-                                          const T* __restrict__ frames_k, int L, int Wb, int Wk,
-                                          const int* __restrict__ colb,
-                                          const int* __restrict__ kindb,
-                                          const int* __restrict__ rowb,
-                                          const double* __restrict__ signb,
-                                          const int* __restrict__ colk,
-                                          const int* __restrict__ kindk,
-                                          const int* __restrict__ rowk,
-                                          const double* __restrict__ signk, int mb, int kb,
-                                          int off, T* __restrict__ det_out,
-                                          T* __restrict__ S_out) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    T* O = reinterpret_cast<T*>(smem_raw);  // mb x mb, rotated by `off`
-    T* fac = O + mb * mb;                   // column-k factors of one step
-    T* det_s = fac + mb;                    // running determinant
-    __shared__ int s_piv;
-
-    const int g = blockIdx.x;
-    const int tid = threadIdx.x;
-    const int nt = blockDim.x;
-    const T* Fb = frames_b + (long long)g * L * Wb;
-    const T* Fk = frames_k + (long long)g * L * Wk;
-    const long long d0 = (long long)g * mb;
-    colb += d0;
-    kindb += d0;
-    rowb += d0;
-    signb += d0;
-    colk += d0;
-    kindk += d0;
-    rowk += d0;
-    signk += d0;
-
-    // ---- O = vb^H vk, stored rotated: O_s[a][b] = O[(a+off)%mb][(b+off)%mb]
-    for (int e = tid; e < mb * mb; e += nt) {
-        const int a = e / mb, b = e % mb;
-        const int i = (a + off) % mb, j = (b + off) % mb;
-        const int ki = kindb[i], kj = kindk[j];
-        T acc = Num<T>::zero();
-        if (ki == 2 || kj == 2) {
-            // zero column
-        } else if (ki == 1 && kj == 1) {
-            acc = (rowb[i] == rowk[j]) ? Num<T>::one() : Num<T>::zero();
-        } else if (ki == 1) {
-            acc = Fk[(long long)rowb[i] * Wk + colk[j]];
-        } else if (kj == 1) {
-            acc = Num<T>::conj(Fb[(long long)rowk[j] * Wb + colb[i]]);
-        } else {
-            const int ci = colb[i], cj = colk[j];
-            for (int r = 0; r < L; ++r)
-                acc = acc + Num<T>::conj(Fb[(long long)r * Wb + ci]) * Fk[(long long)r * Wk + cj];
-        }
-        O[a * mb + b] = acc * (signb[i] * signk[j]);
-    }
-    if (tid == 0) *det_s = Num<T>::one();
-    __syncthreads();
-
-    // ---- Gauss-Jordan with partial pivoting on rows 0..kb-1 of [A | B]
-    for (int k = 0; k < kb; ++k) {
-        if (tid == 0) {
-            int p = k;
-            double best = Num<T>::mag(O[k * mb + k]);
-            for (int i = k + 1; i < kb; ++i) {
-                const double v = Num<T>::mag(O[i * mb + k]);
-                if (v > best) {
-                    best = v;
-                    p = i;
-                }
-            }
-            s_piv = p;
-        }
-        __syncthreads();
-        const int p = s_piv;
-        if (p != k) {
-            for (int j = tid; j < mb; j += nt) {
-                const T tmp = O[k * mb + j];
-                O[k * mb + j] = O[p * mb + j];
-                O[p * mb + j] = tmp;
-            }
-        }
-        __syncthreads();
-        const T piv = O[k * mb + k];
-        const T safe = Num<T>::is_zero(piv) ? Num<T>::one() : piv;
-        if (tid == 0) *det_s = ((p != k) ? -(*det_s) : *det_s) * piv;
-        for (int i = tid; i < kb; i += nt) fac[i] = (i == k) ? Num<T>::zero() : O[i * mb + k];
-        __syncthreads();
-        for (int j = tid; j < mb; j += nt) O[k * mb + j] = O[k * mb + j] / safe;
-        __syncthreads();
-        for (int e = tid; e < kb * mb; e += nt) {
-            const int i = e / mb, j = e % mb;
-            if (i != k) O[i * mb + j] = O[i * mb + j] - fac[i] * O[k * mb + j];
-        }
-        __syncthreads();
-    }
-
-    // ---- Schur complement S = D - C (A^{-1} B)
-    const int sb = mb - kb;
-    T* Sg = S_out + (long long)g * sb * sb;
-    for (int e = tid; e < sb * sb; e += nt) {
-        const int i = e / sb, j = e % sb;
-        T acc = O[(kb + i) * mb + kb + j];
-        for (int t = 0; t < kb; ++t) acc = acc - O[(kb + i) * mb + t] * O[t * mb + kb + j];
-        Sg[e] = acc;
-    }
-    if (tid == 0) det_out[g] = *det_s;
-}
-
-// ---------------------------------------------------------------------------
-// Global-memory variant, for overlap widths whose mb x mb matrix does not fit
-// in shared memory (mb > 169 in float64, mb > 120 in complex128; bench
-// config 1 at L = 1024 reaches mb = 288).  Same function, same elimination
-// order and pivot rule (first maximal |a|); O lives in a G x mb x mb
-// workspace in global memory (52 MB at mb = 320, G = 64 in float64, mostly
-// L2-resident).
-//
-// What bounds it: the serial chain of kb pivot steps, each a block-wide
-// argmax and a rank-one update of kb x (mb - k) entries in global memory,
-// about kb^2 mb / 2 multiply-adds of traffic through L2 per site.  The
-// design: one block of 512 threads per site; O formed by a tiled product
-// (32 x 32 tiles of O, 16 frame rows per step in shared memory, so each frame
-// column is read mb / 32 times instead of mb times); the pivot row and the
-// column factors of each step cached in shared memory; columns left of the
-// pivot, already reduced and never read again, are not updated.
-
-constexpr int kThreadsG = 512;
-constexpr int kTile = 32;  // O tile edge
-constexpr int kRows = 16;  // frame rows per step
-
-template <typename T>
-__device__ __forceinline__ T orbital(const T* F, int W, int r, int kind, int col, int row) {
-    if (kind == 0) return F[(long long)r * W + col];
-    if (kind == 1) return (r == row) ? Num<T>::one() : Num<T>::zero();
-    return Num<T>::zero();
+__host__ __device__ constexpr int overlap_stages() {
+    return std::is_same<T, double>::value ? 6 : 3;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreadsG)
-    site_overlap_schur_gmem_kernel(const T* __restrict__ frames_b, const T* __restrict__ frames_k,
-                                   int L, int Wb, int Wk, const int* __restrict__ colb,
-                                   const int* __restrict__ kindb, const int* __restrict__ rowb,
-                                   const double* __restrict__ signb,
-                                   const int* __restrict__ colk, const int* __restrict__ kindk,
-                                   const int* __restrict__ rowk, const double* __restrict__ signk,
-                                   int mb, int kb, int off, T* work, T* __restrict__ det_out,
-                                   T* __restrict__ S_out) {
+struct OStage {
+    T a[kOD][kOLd];  // bra rows r0 + kk, tile rows t: depth-major
+    T b[kOD][kOLd];
+};
+
+__device__ __forceinline__ void cp_async_elem(double* dst, const double* src) {
+    cp_async8(dst, src, 8);
+}
+__device__ __forceinline__ void cp_async_elem(c128* dst, const c128* src) {
+    cp_async16(reinterpret_cast<double*>(dst), reinterpret_cast<const double*>(src), 16);
+}
+
+// A block walks all L frame rows of its tile in ascending order, so each
+// entry of O is one chain of fused multiply-adds, as in the parent: the
+// extended-precision holds of ill-conditioned sites depend on it (a split
+// of the rows over blocks, summed after, failed one).  Thread tid stages
+// tile column tid % 64 of both sides at rows tid / 64 + 4 m of each stage,
+// its column's source found once.
+template <typename T>
+__global__ void __launch_bounds__(kOThreads)
+    site_overlap_kernel(const T* __restrict__ frames_b, const T* __restrict__ frames_k, int L,
+                        int Wb, int Wk, const int* __restrict__ colb,
+                        const int* __restrict__ kindb, const int* __restrict__ rowb,
+                        const double* __restrict__ signb, const int* __restrict__ colk,
+                        const int* __restrict__ kindk, const int* __restrict__ rowk,
+                        const double* __restrict__ signk, int mb, int off, int tiles,
+                        T* __restrict__ work) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    T* fac = reinterpret_cast<T*>(smem_raw);  // kb: column-k factors of one step
-    T* prow = fac + kb;                       // mb: the scaled pivot row
-    __shared__ T tb[kRows][kTile];
-    __shared__ T tk[kRows][kTile];
-    __shared__ int s_kind[2][kTile], s_col[2][kTile], s_row[2][kTile];
-    __shared__ double s_sign[2][kTile];
-    __shared__ T det_s;
+    OStage<T>* st = reinterpret_cast<OStage<T>*>(smem_raw);
+    __shared__ double s_sign[2][kOT];
 
-    const int g = blockIdx.x;
-    const int tid = threadIdx.x;
-    const int nt = blockDim.x;
-    const T* Fb = frames_b + (long long)g * L * Wb;
-    const T* Fk = frames_k + (long long)g * L * Wk;
-    T* O = work + (long long)g * mb * mb;  // rotated by `off`, as in the kernel above
+    const int g = blockIdx.y;
+    const int a0 = (blockIdx.x / tiles) * kOT, b0 = (blockIdx.x % tiles) * kOT;
     const long long d0 = (long long)g * mb;
-
-    // ---- O = vb^H vk by 32 x 32 tiles of (rotated) O
-    const int ty = tid / kTile, tx = tid % kTile;  // 16 x 32 threads, rows ty and ty + 16
-    for (int a0 = 0; a0 < mb; a0 += kTile) {
-        for (int b0 = 0; b0 < mb; b0 += kTile) {
-            if (tid < 2 * kTile) {
-                const int s = tid / kTile, t = tid % kTile;
-                const int a = (s == 0 ? a0 : b0) + t;
-                const int i = (a + off) % mb;
-                const bool in = a < mb;
-                s_kind[s][t] = in ? (s == 0 ? kindb : kindk)[d0 + i] : 2;
-                s_col[s][t] = in ? (s == 0 ? colb : colk)[d0 + i] : 0;
-                s_row[s][t] = in ? (s == 0 ? rowb : rowk)[d0 + i] : 0;
-                s_sign[s][t] = in ? (s == 0 ? signb : signk)[d0 + i] : 0.0;
-            }
-            __syncthreads();
-            T acc0 = Num<T>::zero(), acc1 = Num<T>::zero();
-            for (int r0 = 0; r0 < L; r0 += kRows) {
-                {
-                    const int rr = tid / kTile, t = tid % kTile, r = r0 + rr;
-                    tb[rr][t] = (r < L) ? Num<T>::conj(orbital(Fb, Wb, r, s_kind[0][t],
-                                                               s_col[0][t], s_row[0][t]))
-                                        : Num<T>::zero();
-                    tk[rr][t] = (r < L) ? orbital(Fk, Wk, r, s_kind[1][t], s_col[1][t],
-                                                  s_row[1][t])
-                                        : Num<T>::zero();
-                }
-                __syncthreads();
+    const int tid = threadIdx.x, t = tid % kOT, kk0 = tid / kOT;
+    // this thread's column of each side: kind (2 past mb), source column
+    // (kind 0), one-hot row (kind 1)
+    int kind[2], row[2];
+    const T* src[2];
 #pragma unroll
-                for (int rr = 0; rr < kRows; ++rr) {
-                    const T kv = tk[rr][tx];
-                    acc0 = acc0 + tb[rr][ty] * kv;
-                    acc1 = acc1 + tb[rr][ty + 16] * kv;
-                }
-                __syncthreads();
-            }
-            const int b = b0 + tx;
-            if (b < mb) {
-                if (a0 + ty < mb)
-                    O[(long long)(a0 + ty) * mb + b] = acc0 * (s_sign[0][ty] * s_sign[1][tx]);
-                if (a0 + ty + 16 < mb)
-                    O[(long long)(a0 + ty + 16) * mb + b] =
-                        acc1 * (s_sign[0][ty + 16] * s_sign[1][tx]);
-            }
-            __syncthreads();
-        }
+    for (int s = 0; s < 2; ++s) {
+        const int a = (s ? b0 : a0) + t;
+        const bool in = a < mb;
+        const long long i = d0 + (in ? (a + off) % mb : 0);
+        kind[s] = in ? (s ? kindk : kindb)[i] : 2;
+        row[s] = in ? (s ? rowk : rowb)[i] : 0;
+        src[s] = (s ? frames_k + (long long)g * L * Wk : frames_b + (long long)g * L * Wb) +
+                 (in ? (s ? colk : colb)[i] : 0);
+        if (kk0 == 0) s_sign[s][t] = in ? (s ? signk : signb)[i] : 0.0;
     }
-    if (tid == 0) det_s = Num<T>::one();
     __syncthreads();
 
-    // ---- Gauss-Jordan with partial pivoting on rows 0..kb-1 of [A | B]
-    for (int k = 0; k < kb; ++k) {
-        double best = -1.0;
-        int bi = 0x7fffffff;
-        for (int i = k + tid; i < kb; i += nt) {
-            const double v = Num<T>::mag(O[(long long)i * mb + k]);
-            if (v > best) {
-                best = v;
-                bi = i;
+    const T one = Num<T>::one(), zero = Num<T>::zero();
+    auto load = [&](int buf, int kt) {
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+            const int ld = s ? Wk : Wb;
+#pragma unroll
+            for (int m = 0; m < kOD / 4; ++m) {
+                const int kk = kk0 + 4 * m, r = kt * kOD + kk;
+                T* dst = s ? &st[buf].b[kk][t] : &st[buf].a[kk][t];
+                if (kind[s] == 0 && r < L)
+                    cp_async_elem(dst, src[s] + (long long)r * ld);
+                else
+                    *dst = (kind[s] == 1 && r == row[s]) ? one : zero;
             }
         }
-        const int p = block_argmax_first(best, bi);
-        if (p != k) {
-            for (int j = k + tid; j < mb; j += nt) {
-                const T tmp = O[(long long)k * mb + j];
-                O[(long long)k * mb + j] = O[(long long)p * mb + j];
-                O[(long long)p * mb + j] = tmp;
+    };
+    const int nk = (L + kOD - 1) / kOD;
+    T* O = work + (long long)g * mb * mb;
+    const int lane = tid & 31, warp = tid >> 5;
+    if constexpr (std::is_same<T, double>::value) {
+        const int wm = (warp >> 1) * 16, wn = (warp & 1) * 32;
+        double acc[2][4][2] = {};
+        cp_async_pipeline<overlap_stages<T>()>(nk, load, [&](int buf) {
+            warp_dmma_stage<true, 1, 4>(acc, &st[buf].a[0][0], kOLd, &st[buf].b[0][0], kOLd, wm,
+                                        wn, kOD);
+        });
+        const int gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+                for (int j = 0; j < 2; ++j) {
+                    const int ta = wm + 8 * r + gq, tb = wn + 8 * ni + 2 * tq + j;
+                    if (a0 + ta < mb && b0 + tb < mb)
+                        O[(long long)(a0 + ta) * mb + b0 + tb] =
+                            acc[r][ni][j] * (s_sign[0][ta] * s_sign[1][tb]);
+                }
+    } else {
+        // complex128 on CUDA cores: thread (ty, tx) keeps tile rows ty + 16 i
+        // and columns tx + 16 j
+        const int ty = tid / 16, tx = tid % 16;
+        T acc[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[i][j] = zero;
+        cp_async_pipeline<overlap_stages<T>()>(nk, load, [&](int buf) {
+#pragma unroll 4
+            for (int kk = 0; kk < kOD; ++kk) {
+                T a[4], b[4];
+#pragma unroll
+                for (int i = 0; i < 4; ++i) a[i] = Num<T>::conj(st[buf].a[kk][ty + 16 * i]);
+#pragma unroll
+                for (int j = 0; j < 4; ++j) b[j] = st[buf].b[kk][tx + 16 * j];
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) acc[i][j] = acc[i][j] + a[i] * b[j];
             }
-        }
-        __syncthreads();
-        const T piv = O[(long long)k * mb + k];
-        const T safe = Num<T>::is_zero(piv) ? Num<T>::one() : piv;
-        if (tid == 0) det_s = ((p != k) ? -det_s : det_s) * piv;
-        for (int i = tid; i < kb; i += nt)
-            fac[i] = (i == k) ? Num<T>::zero() : O[(long long)i * mb + k];
-        for (int j = k + tid; j < mb; j += nt) prow[j] = O[(long long)k * mb + j] / safe;
-        __syncthreads();
-        for (int j = k + tid; j < mb; j += nt) O[(long long)k * mb + j] = prow[j];
-        const int span = mb - k;
-        for (int e = tid; e < kb * span; e += nt) {
-            const int i = e / span, j = k + e % span;
-            if (i != k) O[(long long)i * mb + j] = O[(long long)i * mb + j] - fac[i] * prow[j];
-        }
-        __syncthreads();
+        });
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                const int ta = ty + 16 * i, tb = tx + 16 * j;
+                if (a0 + ta < mb && b0 + tb < mb)
+                    O[(long long)(a0 + ta) * mb + b0 + tb] =
+                        acc[i][j] * (s_sign[0][ta] * s_sign[1][tb]);
+            }
     }
+}
 
-    // ---- Schur complement S = D - C (A^{-1} B)
-    const int sb = mb - kb;
-    T* Sg = S_out + (long long)g * sb * sb;
-    for (int e = tid; e < sb * sb; e += nt) {
-        const int i = e / sb, j = e % sb;
-        const T* Orow = O + (long long)(kb + i) * mb;
-        T acc = Orow[kb + j];
-        for (int t = 0; t < kb; ++t) acc = acc - Orow[t] * O[(long long)t * mb + kb + j];
-        Sg[e] = acc;
-    }
-    if (tid == 0) det_out[g] = det_s;
+// ---- (2) Gauss-Jordan on [A | B] and S = D - C X, one cluster per site ----
+
+constexpr int kSThreads = 512;
+constexpr int kSWarps = kSThreads / 32;
+constexpr int kNone = 0x7fffffff;
+
+// Rows a warp holds (row w + 16 a of its block, a < RA) when a lane holds
+// columns l + 32 b (b < CB): at most 36 float64 values a thread, so that
+// the 128 registers of a 512-thread block hold them with the loop's own
+// (kernels.schur_layout mirrors it).
+template <typename T, int CB>
+__host__ __device__ constexpr int schur_rows_per_warp() {
+    return std::is_same<T, double>::value
+               ? (CB <= 2 ? 8 : CB <= 4 ? 6 : CB <= 9 ? 4 : CB <= 12 ? 3 : 2)
+               : (CB <= 2 ? 4 : CB <= 4 ? 3 : CB <= 9 ? 2 : 1);
+}
+
+struct Cand {
+    double v;  // |pivot candidate|; -1 for none, -0.5 for NaN (loses to any number)
+    int pos;   // logical row
+    int who;   // (block rank << 16) | local row
+};
+
+__device__ __forceinline__ void cand_take(Cand& b, double v, int pos, int who) {
+    if (v > b.v || (v == b.v && pos < b.pos)) b = Cand{v, pos, who};
+}
+
+// Butterfly arg-max over the warp: every lane ends with the best.
+__device__ __forceinline__ void warp_cand(Cand& b) {
+    for (int d = 16; d > 0; d >>= 1)
+        cand_take(b, __shfl_xor_sync(0xffffffffu, b.v, d),
+                  __shfl_xor_sync(0xffffffffu, b.pos, d),
+                  __shfl_xor_sync(0xffffffffu, b.who, d));
 }
 
 template <typename T>
-int launch_gmem(const void* frames_b, const void* frames_k, int G, int L, int Wb, int Wk,
-                const int* colb, const int* kindb, const int* rowb, const double* signb,
-                const int* colk, const int* kindk, const int* rowk, const double* signk, int mb,
-                int kb, int off, void* work, void* det_out, void* S_out, cudaStream_t stream) {
-    const size_t smem = ((size_t)kb + mb) * sizeof(T);
-    cudaError_t err = cudaFuncSetAttribute(site_overlap_schur_gmem_kernel<T>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    site_overlap_schur_gmem_kernel<T><<<G, kThreadsG, smem, stream>>>(
-        (const T*)frames_b, (const T*)frames_k, L, Wb, Wk, colb, kindb, rowb, signb, colk,
-        kindk, rowk, signk, mb, kb, off, (T*)work, (T*)det_out, (T*)S_out);
-    return (int)cudaGetLastError();
+__device__ __forceinline__ double pivot_mag(T a) {
+    const double v = Num<T>::mag(a);
+    return v == v ? v : -0.5;
+}
+
+__device__ __forceinline__ double shfl_val(double v, int src) {
+    return __shfl_sync(0xffffffffu, v, src);
+}
+__device__ __forceinline__ c128 shfl_val(c128 v, int src) {
+    return c128{__shfl_sync(0xffffffffu, v.re, src), __shfl_sync(0xffffffffu, v.im, src)};
+}
+
+// S = D - C X from site g's workspace O (X in rows 0..kb-1, columns kb on;
+// C and D in rows kb on) into Sg, by warps w0, w0 + nw, ... of the caller's
+// nw: float64 as 16 x 8 DMMA tiles, complex128 one entry a thread (CUDA
+// cores); either way each entry is the chain D - C[i, 0] X[0, j] - ...
+template <typename T>
+__device__ __forceinline__ void schur_product(const T* O, int mb, int kb, T* __restrict__ Sg,
+                                              int w0, int nw) {
+    const int sb = mb - kb, lane = threadIdx.x & 31;
+    const T* C = O + (long long)kb * mb;       // C[i, t] = C[i mb + t]
+    const T* D = C + kb;                       // D[i, j] = D[i mb + j]
+    const T* X = O + kb;                       // X[t, j] = X[t mb + j]
+    if constexpr (std::is_same<T, double>::value) {
+        // 16 x 8 DMMA tiles of S over the workers' warps; the accumulators
+        // start at D and take -C X in ascending t
+        const int gq = lane >> 2, tq = lane & 3, tn = (sb + 7) / 8;
+        auto at = [&](const double* base, int i, int j, int ni, int nj) {
+            return (i < ni && j < nj) ? base[(long long)i * mb + j] : 0.0;
+        };
+        for (int tile = w0; tile < ((sb + 15) / 16) * tn; tile += nw) {
+            const int r0 = (tile / tn) * 16 + gq, c0 = (tile % tn) * 8;
+            double d0 = at(D, r0, c0 + 2 * tq, sb, sb), d1 = at(D, r0, c0 + 2 * tq + 1, sb, sb);
+            double d2 = at(D, r0 + 8, c0 + 2 * tq, sb, sb);
+            double d3 = at(D, r0 + 8, c0 + 2 * tq + 1, sb, sb);
+            for (int t0 = 0; t0 < kb; t0 += 8) {
+                const double a[4] = {-at(C, r0, t0 + tq, sb, kb), -at(C, r0 + 8, t0 + tq, sb, kb),
+                                     -at(C, r0, t0 + tq + 4, sb, kb),
+                                     -at(C, r0 + 8, t0 + tq + 4, sb, kb)};
+                const double b[2] = {at(X, t0 + tq, c0 + gq, kb, sb),
+                                     at(X, t0 + tq + 4, c0 + gq, kb, sb)};
+                dmma_16x8x8(d0, d1, d2, d3, a, b);
+            }
+            const double d[4] = {d0, d1, d2, d3};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int i = r0 + 8 * (e >> 1), j = c0 + 2 * tq + (e & 1);
+                if (i < sb && j < sb) Sg[(long long)i * sb + j] = d[e];
+            }
+        }
+    } else {
+        for (int e = 32 * w0 + lane; e < sb * sb; e += 32 * nw) {
+            const int i = e / sb, j = e % sb;
+            T acc = D[(long long)i * mb + j];
+            for (int t = 0; t < kb; ++t)
+                acc = acc - C[(long long)i * mb + t] * X[(long long)t * mb + j];
+            Sg[e] = acc;
+        }
+    }
+}
+
+// The block's rows of [A | B] live in registers: row w + 16 a of the block
+// with warp w, its columns l + 32 b with lane l.  A step: each warp's
+// candidate for column k (from the lane holding it), the block's best by a
+// block barrier, whose warp publishes that row in shared memory (cand_row)
+// before the cluster barrier, so that one barrier a step serves the whole
+// cluster; every block then reads the winner's published row (local or
+// distributed shared memory), scales it into pk and updates its rows.
+template <typename T, int CB>
+__global__ void __launch_bounds__(kSThreads)
+    site_schur_kernel(T* __restrict__ work, int mb, int kb, int rpc, T* __restrict__ det_out,
+                      T* __restrict__ S_out) {
+    constexpr int RA = schur_rows_per_warp<T, CB>();
+    cg::cluster_group cluster = cg::this_cluster();
+    const int nc = (int)cluster.num_blocks(), q = (int)cluster.block_rank();
+    const int g = blockIdx.x / nc;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    T* cand_row = reinterpret_cast<T*>(smem_raw);  // 2 x mb: the block's best row, by parity
+    T* pk = cand_row + 2 * mb;                      // the scaled pivot row of a step
+    __shared__ Cand s_red[2][kSWarps];              // each warp's candidate, by parity
+    __shared__ Cand s_slot[2];                      // the block's candidate, read by the cluster
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int row0 = q * rpc, nrows = max(0, min(kb, row0 + rpc) - row0);
+    T* O = work + (long long)g * mb * mb;  // rotated by `off`, from site_overlap_kernel
+    const T one = Num<T>::one(), zero = Num<T>::zero();
+    const Cand none{-1.0, kNone, 0};
+
+    // this thread's part of the block's rows
+    T R[RA][CB];
+    int posr[RA];
+#pragma unroll
+    for (int a = 0; a < RA; ++a) {
+        const int i = warp + kSWarps * a;
+        posr[a] = i < nrows ? row0 + i : kNone;  // kNone: no row here
+#pragma unroll
+        for (int b = 0; b < CB; ++b) {
+            const int j = lane + 32 * b;
+            R[a][b] = (i < nrows && j < mb) ? O[(long long)(row0 + i) * mb + j] : zero;
+        }
+    }
+
+    T det = one;  // the same in every thread
+#pragma unroll
+    for (int bk = 0; bk < CB; ++bk) {  // columns 32 bk .. 32 bk + 31: lane kk holds column k
+        for (int kk = 0; kk < 32; ++kk) {
+            const int k = 32 * bk + kk;
+            if (k >= kb) break;  // uniform
+            const int par = k & 1;
+            Cand best = none;  // column k of this warp's rows at or past step k
+            if (lane == kk)
+#pragma unroll
+                for (int a = 0; a < RA; ++a)
+                    if (posr[a] != kNone && posr[a] >= k)
+                        cand_take(best, pivot_mag(R[a][bk]), posr[a],
+                                  (q << 16) | (warp + kSWarps * a));
+            warp_cand(best);
+            if (lane == 0) s_red[par][warp] = best;
+            __syncthreads();
+            Cand mine = lane < kSWarps ? s_red[par][lane] : none;
+            warp_cand(mine);  // the block's best, in every lane of every warp
+            const int li = mine.who & 0xffff;
+            if (mine.pos != kNone && warp == li % kSWarps) {  // publish it, columns k on
+                const int ab = li / kSWarps;
+#pragma unroll
+                for (int b = bk; b < CB; ++b) {
+                    T v = R[0][b];
+#pragma unroll
+                    for (int a = 1; a < RA; ++a)
+                        if (a == ab) v = R[a][b];
+                    const int j = lane + 32 * b;
+                    if (j >= k && j < mb) cand_row[par * mb + j] = v;
+                }
+            }
+            Cand win = mine;
+            if (nc > 1) {
+                if (tid == 0) s_slot[par] = mine;
+                cluster.sync();  // every block's candidate and row are out
+                win = lane < nc ? *cluster.map_shared_rank(&s_slot[par], lane) : none;
+                warp_cand(win);
+            } else {
+                __syncthreads();
+            }
+            const int qo = win.who >> 16, lo = win.who & 0xffff, p = win.pos;
+            const T* prem =
+                (qo == q ? cand_row : cluster.map_shared_rank(cand_row, qo)) + par * mb;
+            const T piv = prem[k];
+            const T safe = Num<T>::is_zero(piv) ? one : piv;
+            for (int j = k + 1 + tid; j < mb; j += kSThreads) pk[j] = prem[j] / safe;
+            det = ((p != k) ? -det : det) * piv;
+            __syncthreads();
+            // every other row: A[i, j] -= A[i, k] pk[j] for j > k; the pivot
+            // row becomes pk (column k is never read again)
+            T fac[RA];
+#pragma unroll
+            for (int a = 0; a < RA; ++a) {
+                fac[a] = shfl_val(R[a][bk], kk);
+                posr[a] = posr[a] == k ? p : (posr[a] == p ? k : posr[a]);
+            }
+            const int pivot_a = (qo == q && warp == lo % kSWarps) ? lo / kSWarps : -1;
+#pragma unroll
+            for (int b = bk; b < CB; ++b) {
+                const int j = lane + 32 * b;
+                if (j > k && j < mb) {
+                    const T pj = pk[j];
+#pragma unroll
+                    for (int a = 0; a < RA; ++a)
+                        R[a][b] = a == pivot_a ? pj : R[a][b] - fac[a] * pj;
+                }
+            }
+        }
+    }
+    // X = A^{-1} B into the workspace's rows 0..kb-1 by logical position
+#pragma unroll
+    for (int a = 0; a < RA; ++a)
+        if (posr[a] != kNone)
+#pragma unroll
+            for (int b = 0; b < CB; ++b) {
+                const int j = lane + 32 * b;
+                if (j >= kb && j < mb) O[(long long)posr[a] * mb + j] = R[a][b];
+            }
+    if (nc == 1) {
+        __syncthreads();  // X is complete
+    } else {
+        __threadfence();
+        cluster.sync();  // X is complete; no block reads another's shared memory past here
+    }
+
+    const int sb = mb - kb;
+    schur_product(O, mb, kb, S_out + (long long)g * sb * sb, q * kSWarps + warp, nc * kSWarps);
+    if (q == 0 && tid == 0) det_out[g] = det;
+}
+
+// The global-memory elimination, for an always block that no cluster holds
+// in registers (kernels.schur_layout gives nc = 0: mb > 512, or more than
+// 8 blocks' rows): one block per site, [A | B] left in the workspace.  The
+// steps are site_schur_kernel's (the pivot is the first maximal |a| of
+// column k over rows k..kb-1, the arithmetic the same operation for
+// operation), but the pivot row is swapped into row k, scaled in place and
+// read from there by the rank-one update of every other row, a warp a row,
+// through L2; then S = D - C X over the block's warps.
+template <typename T>
+__global__ void __launch_bounds__(kSThreads)
+    site_schur_gmem_kernel(T* __restrict__ work, int mb, int kb, T* __restrict__ det_out,
+                           T* __restrict__ S_out) {
+    __shared__ Cand s_red[kSWarps];
+    const int g = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    T* O = work + (long long)g * mb * mb;
+    const T one = Num<T>::one();
+    const Cand none{-1.0, kNone, 0};
+    T det = one;  // the same in every thread
+    for (int k = 0; k < kb; ++k) {
+        Cand best = none;
+        for (int i = k + tid; i < kb; i += kSThreads)
+            cand_take(best, pivot_mag(O[(long long)i * mb + k]), i, 0);
+        warp_cand(best);
+        if (lane == 0) s_red[warp] = best;
+        __syncthreads();
+        Cand win = lane < kSWarps ? s_red[lane] : none;
+        warp_cand(win);
+        const int p = win.pos;
+        T* rk = O + (long long)k * mb;
+        T* rp = O + (long long)p * mb;
+        const T piv = rp[k];
+        const T safe = Num<T>::is_zero(piv) ? one : piv;
+        det = ((p != k) ? -det : det) * piv;
+        __syncthreads();  // column k and the pivot are read
+        for (int j = k + tid; j < mb; j += kSThreads) {  // swap rows k and p, scale row k
+            const T a = rp[j], b = rk[j];
+            rk[j] = j > k ? a / safe : a;
+            if (p != k) rp[j] = b;
+        }
+        __syncthreads();  // the pivot row is in place
+        for (int i = warp; i < kb; i += kSWarps) {
+            if (i == k) continue;
+            T* ri = O + (long long)i * mb;
+            const T f = ri[k];
+            for (int j = k + 1 + lane; j < mb; j += 32) ri[j] = ri[j] - f * rk[j];
+        }
+        __syncthreads();  // the step is done
+    }
+    schur_product(O, mb, kb, S_out + (long long)g * (mb - kb) * (mb - kb), warp, kSWarps);
+    if (tid == 0) det_out[g] = det;
 }
 
 template <typename T>
 int launch(const void* frames_b, const void* frames_k, int G, int L, int Wb, int Wk,
            const int* colb, const int* kindb, const int* rowb, const double* signb,
            const int* colk, const int* kindk, const int* rowk, const double* signk, int mb,
-           int kb, int off, void* det_out, void* S_out, cudaStream_t stream) {
-    const size_t smem = ((size_t)mb * mb + mb + 1) * sizeof(T);
-    cudaError_t err = cudaFuncSetAttribute(site_overlap_schur_kernel<T>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    site_overlap_schur_kernel<T><<<G, kThreads, smem, stream>>>(
-        (const T*)frames_b, (const T*)frames_k, L, Wb, Wk, colb, kindb, rowb, signb, colk,
-        kindk, rowk, signk, mb, kb, off, (T*)det_out, (T*)S_out);
-    return (int)cudaGetLastError();
+           int kb, int off, int nc, int rpc, int smem, void* work, void* det_out, void* S_out,
+           cudaStream_t stream) {
+    if (mb > 0) {
+        const int tiles = (mb + kOT - 1) / kOT;
+        cudaError_t err = launch_dynamic_smem<site_overlap_kernel<T>>(
+            dim3(tiles * tiles, G), kOThreads, (int)(overlap_stages<T>() * sizeof(OStage<T>)),
+            stream, (const T*)frames_b, (const T*)frames_k, L, Wb, Wk, colb, kindb, rowb, signb,
+            colk, kindk, rowk, signk, mb, off, tiles, (T*)work);
+        if (err != cudaSuccess) return (int)err;
+    }
+    if (nc == 0) {
+        site_schur_gmem_kernel<T><<<G, kSThreads, 0, stream>>>((T*)work, mb, kb, (T*)det_out,
+                                                                (T*)S_out);
+        return (int)cudaGetLastError();
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(G * nc);
+    cfg.blockDim = dim3(kSThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = nc;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+#define TF_SCHUR(CB)                                                                      \
+    if (mb <= 32 * CB) {                                                                  \
+        if (rpc > kSWarps * schur_rows_per_warp<T, CB>()) return (int)cudaErrorInvalidValue; \
+        const cudaError_t e = cudaLaunchKernelEx(&cfg, site_schur_kernel<T, CB>, (T*)work, \
+                                                 mb, kb, rpc, (T*)det_out, (T*)S_out);     \
+        return (int)(e != cudaSuccess ? e : cudaGetLastError());                          \
+    }
+    TF_SCHUR(2)
+    TF_SCHUR(4)
+    TF_SCHUR(9)
+    TF_SCHUR(12)
+    TF_SCHUR(16)
+#undef TF_SCHUR
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// `work` is a G x mb x mb buffer of the frames' dtype, allocated by the
+// caller; nc (1..8), rpc and smem are the cluster size, rows per block and
+// dynamic shared bytes of the Schur kernel (kernels.schur_layout); nc = 0
+// takes the global-memory elimination (rpc and smem unused).
 extern "C" int tf_site_overlap_schur(int dtype, const void* frames_b, const void* frames_k,
                                      int G, int L, int Wb, int Wk, const int* colb,
                                      const int* kindb, const int* rowb, const double* signb,
                                      const int* colk, const int* kindk, const int* rowk,
                                      const double* signk, int mb, int kb, int right_mode,
-                                     void* det_out, void* S_out, void* stream) {
+                                     int nc, int rpc, int smem, void* work, void* det_out,
+                                     void* S_out, void* stream) {
     if (G == 0) return (int)cudaSuccess;
+    if (nc < 0 || nc > 8 || (nc > 0 && (rpc < 0 || (long long)rpc * nc < kb)) ||
+        smem > 48 * 1024)
+        return (int)cudaErrorInvalidValue;
     const int off = right_mode ? mb - kb : 0;
     if (dtype == TF_F64)
         return launch<double>(frames_b, frames_k, G, L, Wb, Wk, colb, kindb, rowb, signb, colk,
-                              kindk, rowk, signk, mb, kb, off, det_out, S_out,
-                              (cudaStream_t)stream);
+                              kindk, rowk, signk, mb, kb, off, nc, rpc, smem, work, det_out,
+                              S_out, (cudaStream_t)stream);
     if (dtype == TF_C128)
         return launch<c128>(frames_b, frames_k, G, L, Wb, Wk, colb, kindb, rowb, signb, colk,
-                            kindk, rowk, signk, mb, kb, off, det_out, S_out,
+                            kindk, rowk, signk, mb, kb, off, nc, rpc, smem, work, det_out, S_out,
                             (cudaStream_t)stream);
-    return (int)cudaErrorInvalidValue;
-}
-
-// `work` is a G x mb x mb buffer of the frames' dtype, allocated by the caller.
-extern "C" int tf_site_overlap_schur_gmem(int dtype, const void* frames_b, const void* frames_k,
-                                          int G, int L, int Wb, int Wk, const int* colb,
-                                          const int* kindb, const int* rowb,
-                                          const double* signb, const int* colk,
-                                          const int* kindk, const int* rowk,
-                                          const double* signk, int mb, int kb, int right_mode,
-                                          void* work, void* det_out, void* S_out, void* stream) {
-    if (G == 0) return (int)cudaSuccess;
-    const int off = right_mode ? mb - kb : 0;
-    if (dtype == TF_F64)
-        return launch_gmem<double>(frames_b, frames_k, G, L, Wb, Wk, colb, kindb, rowb, signb,
-                                   colk, kindk, rowk, signk, mb, kb, off, work, det_out, S_out,
-                                   (cudaStream_t)stream);
-    if (dtype == TF_C128)
-        return launch_gmem<c128>(frames_b, frames_k, G, L, Wb, Wk, colb, kindb, rowb, signb,
-                                 colk, kindk, rowk, signk, mb, kb, off, work, det_out, S_out,
-                                 (cudaStream_t)stream);
     return (int)cudaErrorInvalidValue;
 }

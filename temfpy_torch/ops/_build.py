@@ -43,14 +43,13 @@ _i = ctypes.c_int
 _d = ctypes.c_double
 _SIGNATURES = {
     # dtype, M, det_always, occ_b, occ_k, pr, pc, tab0, tab1, tab2, slot,
-    # out, G, m, w, R_b, K_b, P_b, n0, n1, n2, sel, D0p1, D1, D2, stream
-    "tf_det_fill": [_i] + [_vp] * 11 + [_i] * 13 + [_vp],
+    # out, G, m, w, R_b, K_b, P_b, n0, n1, n2, sel, D0p1, D1, D2,
+    # pairs_per_block, stream
+    "tf_det_fill": [_i] + [_vp] * 11 + [_i] * 14 + [_vp],
     # dtype, frames_b, frames_k, G, L, Wb, Wk, colb, kindb, rowb, signb,
-    # colk, kindk, rowk, signk, mb, kb, right_mode, det_out, S_out, stream
-    "tf_site_overlap_schur": [_i, _vp, _vp] + [_i] * 4 + [_vp] * 8 + [_i] * 3
-    + [_vp] * 3,
-    # ... as tf_site_overlap_schur, with the workspace before det_out
-    "tf_site_overlap_schur_gmem": [_i, _vp, _vp] + [_i] * 4 + [_vp] * 8 + [_i] * 3
+    # colk, kindk, rowk, signk, mb, kb, right_mode, cluster, rows_per_block,
+    # smem, work, det_out, S_out, stream
+    "tf_site_overlap_schur": [_i, _vp, _vp] + [_i] * 4 + [_vp] * 8 + [_i] * 6
     + [_vp] * 4,
     # V1h, V2h, j1, j2, thresh, G, nb, k1, k2, N_out, norm_out, stream
     "tf_bdg_overlap": [_vp] * 5 + [_i] * 4 + [_vp] * 3,

@@ -6,12 +6,17 @@ first use by :mod:`temfpy_torch.ops._build`).  A CUDA call launches the
 kernel or raises; nothing falls back.  Each wrapper counts its kernel
 launches in its ``launches`` attribute (twin calls do not count).
 
-- :func:`site_overlap_schur` (kernel ``csrc/site_overlap_schur.cu``)
+- :func:`site_overlap_schur` (kernels ``csrc/site_overlap_schur.cu``)
   replaces ``temfpy_tpu/slater.py:_site_overlap_impl`` /
   ``_site_overlap_group``: per site, the bra/ket orbital overlap and the
-  Schur complement of its always-occupied block.  Sites too wide for its
-  shared memory go to :func:`site_overlap_schur_gmem`, the same source's
-  global-memory kernel, chosen from the shape before the launch.
+  Schur complement of its always-occupied block, in two launches (the
+  overlap on a grid of tiles, then one thread-block cluster per site for
+  the elimination and the Schur product; :func:`schur_layout`; an always
+  block no cluster holds takes a global-memory elimination, one block a
+  site).  Sites whose overlap matrix would not fit one block's shared
+  memory go to :func:`site_overlap_schur_gmem`, chosen from the shape
+  before the launch: the same kernels with a cluster of at least two
+  blocks.
 - :func:`fw_frame_slab` (kernel ``csrc/fw_frame_slab.cu``) replaces
   ``temfpy_tpu/ops/fw.py:_fw_frame_slab``: per cut of a slab, the
   Fishman-White eigenvector frame gathered and combined from the mode
@@ -144,6 +149,19 @@ def _raise_on(err: int, name: str):
 # --------------------------------------------------------------------------
 
 
+def orbital_columns(frames, col, kind, row, sign):
+    """The (G, L, mb) orbital columns a site_overlap_schur descriptor names:
+    frame column ``col`` (kind 0), the one-hot vector at ``row`` (kind 1)
+    or zero (kind 2), times ``sign``."""
+    L = frames.shape[1]
+    rows = torch.arange(L, device=frames.device)
+    g = torch.gather(frames, 2, col.long()[:, None, :].expand(-1, L, -1))
+    oh = (rows[None, :, None] == row.long()[:, None, :]).to(frames.dtype)
+    kind = kind[:, None, :]
+    v = torch.where(kind == 0, g, torch.where(kind == 1, oh, torch.zeros_like(g)))
+    return v * sign[:, None, :].to(frames.dtype)
+
+
 def site_overlap_schur_plain(frames_b, frames_k, colb, kindb, rowb, signb,
                              colk, kindk, rowk, signk, *, kb: int, mode: str):
     """Plain PyTorch twin of the ``site_overlap_schur`` kernel
@@ -154,18 +172,8 @@ def site_overlap_schur_plain(frames_b, frames_k, colb, kindb, rowb, signb,
     float64.  Returns ``det_always`` (G,) and the Schur complement
     ``sometimes`` (G, mb - kb, mb - kb).
     """
-    L = frames_b.shape[1]
-    rows = torch.arange(L, device=frames_b.device)
-
-    def build(frames, col, kind, row, sign):
-        g = torch.gather(frames, 2, col.long()[:, None, :].expand(-1, L, -1))
-        oh = (rows[None, :, None] == row.long()[:, None, :]).to(frames.dtype)
-        kind = kind[:, None, :]
-        v = torch.where(kind == 0, g, torch.where(kind == 1, oh, torch.zeros_like(g)))
-        return v * sign[:, None, :].to(frames.dtype)
-
-    vb = build(frames_b, colb, kindb, rowb, signb)
-    vk = build(frames_k, colk, kindk, rowk, signk)
+    vb = orbital_columns(frames_b, colb, kindb, rowb, signb)
+    vk = orbital_columns(frames_k, colk, kindk, rowk, signk)
     O = vb.conj().transpose(1, 2) @ vk
     if kb == 0:
         return torch.ones(O.shape[0], dtype=O.dtype, device=O.device), O
@@ -179,12 +187,55 @@ def site_overlap_schur_plain(frames_b, frames_k, colb, kindb, rowb, signb,
 
 
 def site_overlap_fits_smem(mb: int, dtype: torch.dtype) -> bool:
-    """Whether the shared-memory ``site_overlap_schur`` kernel takes overlap
-    width ``mb`` (its mb x mb matrix, a pivot column and the determinant);
-    wider sites go to :func:`site_overlap_schur_gmem`: mb > 169 in float64,
-    mb > 120 in complex128."""
+    """Whether :func:`site_overlap_schur` takes overlap width ``mb`` itself
+    (an mb x mb matrix, a pivot column and the determinant fit one block's
+    shared memory); wider sites go to :func:`site_overlap_schur_gmem`: mb >
+    169 in float64, mb > 120 in complex128."""
     item = 16 if dtype == torch.complex128 else 8
     return (mb * mb + mb + 1) * item <= _SMEM_LIMIT
+
+
+OVERLAP_TILE = 64
+"""Edge of the O tiles of the overlap kernel (one block each)."""
+SCHUR_MAX_CLUSTER = 8
+"""Most blocks of one Schur cluster (the portable cluster size)."""
+SCHUR_MAX_WIDTH = 512
+"""Widest overlap a Schur cluster takes (a lane holds 16 columns of a row);
+wider ones take the global-memory elimination."""
+_SCHUR_ROWS_PER_WARP = ({2: 8, 4: 6, 9: 4, 12: 3, 16: 2}, {2: 4, 4: 3, 9: 2, 12: 1, 16: 1})
+"""Rows a warp of the Schur kernel holds, float64 and complex128, by the
+columns cb a lane holds (csrc/site_overlap_schur.cu:schur_rows_per_warp)."""
+
+
+def overlap_tiles(mb: int) -> int:
+    """Tiles per edge of the overlap kernel's grid: it launches
+    overlap_tiles(mb)^2 blocks per site, block x covering rows
+    (x // t) * OVERLAP_TILE and columns (x % t) * OVERLAP_TILE on."""
+    return -(-mb // OVERLAP_TILE)
+
+
+def schur_layout(kb: int, mb: int, dtype: torch.dtype, wide: bool = False):
+    """(cluster size nc, rows per block, dynamic shared bytes) of the Schur
+    kernel for an always block of kb rows in an overlap of width mb.  A
+    block keeps its rows in registers: a lane holds columns l + 32 b of its
+    warp's rows, b < cb (the first of 2, 4, 9, 12, 16 with 32 cb >= mb),
+    so a warp holds _SCHUR_ROWS_PER_WARP rows (at most 36 float64 values a
+    thread) and a block 16 times that.  nc is the fewest blocks that hold
+    the kb rows, at least two with ``wide`` where kb >= 2; block q holds
+    rows q * rows .. min(kb, (q + 1) * rows) - 1; its shared memory holds
+    two published rows and the pivot row.  Past SCHUR_MAX_WIDTH or
+    SCHUR_MAX_CLUSTER blocks, (0, 0, 0): the global-memory elimination,
+    one block a site with [A | B] in the workspace, which takes any
+    width."""
+    item = 16 if dtype == torch.complex128 else 8
+    if mb > SCHUR_MAX_WIDTH:
+        return 0, 0, 0
+    cb = next(x for x in (2, 4, 9, 12, 16) if mb <= 32 * x)
+    held = 16 * _SCHUR_ROWS_PER_WARP[item == 16][cb]
+    nc = max(-(-kb // held), 2 if wide and kb >= 2 else 1)
+    if nc > SCHUR_MAX_CLUSTER:
+        return 0, 0, 0
+    return nc, -(-kb // nc), 3 * mb * item
 
 
 def site_overlap_schur(frames_b, frames_k, colb, kindb, rowb, signb,
@@ -192,9 +243,9 @@ def site_overlap_schur(frames_b, frames_k, colb, kindb, rowb, signb,
     """Per-site overlap matrix and Schur complement of a group of G sites
     (arguments as in :func:`site_overlap_schur_plain`; on CUDA the integer
     descriptors must be int32 and ``sign`` float64).  CPU tensors run the
-    twin; CUDA tensors launch ``csrc/site_overlap_schur.cu``: its
-    shared-memory kernel where :func:`site_overlap_fits_smem`, else (chosen
-    from the shape before any launch) :func:`site_overlap_schur_gmem`."""
+    twin; CUDA tensors launch ``csrc/site_overlap_schur.cu`` where
+    :func:`site_overlap_fits_smem`, else (chosen from the shape before any
+    launch) :func:`site_overlap_schur_gmem`."""
     args = (frames_b, frames_k, colb, kindb, rowb, signb, colk, kindk, rowk, signk)
     dev = frames_b.device
     if dev.type == "cpu":
@@ -211,11 +262,12 @@ site_overlap_schur.launches = 0
 
 def site_overlap_schur_gmem(frames_b, frames_k, colb, kindb, rowb, signb,
                             colk, kindk, rowk, signk, *, kb: int, mode: str):
-    """The global-memory kernel of ``csrc/site_overlap_schur.cu`` on CUDA
-    tensors, any overlap width (arguments, result and twin as for
-    :func:`site_overlap_schur`, which calls this where the shared-memory
-    kernel does not fit); the mb x mb matrices live in a G x mb x mb
-    workspace.  Counts its own launches."""
+    """The kernels of ``csrc/site_overlap_schur.cu`` on CUDA tensors with a
+    Schur cluster of at least two blocks (:func:`schur_layout`; past what a
+    cluster holds, the global-memory elimination), any width (arguments,
+    result and twin as for
+    :func:`site_overlap_schur`, which calls this where an overlap matrix
+    would not fit one block).  Counts its own launches."""
     args = (frames_b, frames_k, colb, kindb, rowb, signb, colk, kindk, rowk, signk)
     return _site_overlap_launch(site_overlap_schur_gmem, args, kb, mode)
 
@@ -224,9 +276,10 @@ site_overlap_schur_gmem.launches = 0
 
 
 def _site_overlap_launch(wrapper, args, kb, mode):
-    """Checks and launch of the kernel of ``wrapper`` (one of the two
-    site_overlap_schur wrappers, whose ``launches`` it counts); the
-    global-memory kernel takes its workspace before det_out."""
+    """Checks and launch of ``csrc/site_overlap_schur.cu`` for ``wrapper``
+    (one of the two site_overlap_schur wrappers, whose ``launches`` it
+    counts; the gmem one forces a cluster of at least two blocks).  The
+    overlap matrices go to a G x mb x mb workspace."""
     frames_b, frames_k, colb, kindb, rowb, signb, colk, kindk, rowk, signk = args
     if mode not in ("left", "right"):
         raise ValueError(f"mode must be 'left' or 'right', got {mode!r}")
@@ -254,21 +307,20 @@ def _site_overlap_launch(wrapper, args, kb, mode):
         raise TypeError("signs must be float64")
     _check_cuda({**desc, "frames_b": frames_b, "frames_k": frames_k,
                  "signb": signb, "signk": signk}, dev)
+    nc, rows, smem = schur_layout(kb, mb, frames_b.dtype,
+                                  wide=wrapper is site_overlap_schur_gmem)
     sb = mb - kb
     det = torch.empty(G, dtype=frames_b.dtype, device=dev)
     S = torch.empty((G, sb, sb), dtype=frames_b.dtype, device=dev)
+    work = torch.empty((G, mb, mb), dtype=frames_b.dtype, device=dev)
     lib = _build.load()
-    if wrapper is site_overlap_schur_gmem:
-        work = torch.empty((G, mb, mb), dtype=frames_b.dtype, device=dev)
-        fn, extra = lib.tf_site_overlap_schur_gmem, (work.data_ptr(),)
-    else:
-        fn, extra = lib.tf_site_overlap_schur, ()
     with _on_device(dev):
-        err = fn(_DTYPE_CODE[frames_b.dtype], frames_b.data_ptr(), frames_k.data_ptr(),
-                 G, L, Wb, Wk, colb.data_ptr(), kindb.data_ptr(), rowb.data_ptr(),
-                 signb.data_ptr(), colk.data_ptr(), kindk.data_ptr(), rowk.data_ptr(),
-                 signk.data_ptr(), mb, kb, int(mode == "right"), *extra, det.data_ptr(),
-                 S.data_ptr(), _stream_ptr(dev))
+        err = lib.tf_site_overlap_schur(
+            _DTYPE_CODE[frames_b.dtype], frames_b.data_ptr(), frames_k.data_ptr(), G, L, Wb, Wk,
+            colb.data_ptr(), kindb.data_ptr(), rowb.data_ptr(), signb.data_ptr(),
+            colk.data_ptr(), kindk.data_ptr(), rowk.data_ptr(), signk.data_ptr(), mb, kb,
+            int(mode == "right"), nc, rows, smem, work.data_ptr(), det.data_ptr(),
+            S.data_ptr(), _stream_ptr(dev))
     _raise_on(err, wrapper.__name__)
     wrapper.launches += 1
     return det, S
@@ -300,6 +352,37 @@ def fill_buffer(out, slot, n: int, shape: tuple, dtype, device):
     if slot and not 0 <= min(slot) <= max(slot) < out.shape[0]:
         raise ValueError(f"slots {min(slot)}..{max(slot)} outside the buffer's {out.shape[0]}")
     return out, slot
+
+
+DET_FILL_THREADS = 256
+"""Threads of a ``det_fill`` block (csrc/det_fill.cu:kFillThreads), 64 at
+the template width 64 (kWideThreads)."""
+_DET_FILL_BLOCKS = 4096
+"""Blocks a ``det_fill`` launch aims at: a block takes more pairs (up to 32
+rounds of its segments) only while the launch has more than this many."""
+_DET_FILL_LANES = {torch.float64: {4: 1, 8: 1, 16: 8, 32: 32, 64: 32},
+                   torch.complex128: {4: 1, 8: 2, 16: 8, 32: 32, 64: 32}}
+"""Lanes of a pair's segment by dtype and template width
+(csrc/det_fill.cu:fill_lanes): each lane holds W / lanes rows in
+registers, at most 64 float64 values; at width 64 a warp holds the pair's
+matrix in shared memory."""
+
+
+def det_fill_geometry(w: int, P_b: int, G: int, dtype=torch.float64) -> dict:
+    """The launch shape of ``csrc/det_fill.cu`` for width ``w``, P_b pairs
+    a site and G sites: the template width ``W`` (4, 8, 16, 32, 64), the
+    ``lanes`` of a pair's segment, the block's ``threads``, the
+    ``pairs_per_block`` one block takes (a whole number of rounds of its
+    threads / lanes segments) and ``blocks_per_site``: block b of site g
+    takes pairs b * pairs_per_block up to P_b."""
+    W = next(x for x in (4, 8, 16, 32, 64) if w <= x)
+    lanes = _DET_FILL_LANES[dtype][W]
+    threads = 64 if W == 64 else DET_FILL_THREADS
+    per_round = threads // lanes
+    rounds = max(1, min(32, (G * P_b) // (per_round * _DET_FILL_BLOCKS)))
+    ppb = per_round * rounds
+    return {"W": W, "lanes": lanes, "threads": threads, "pairs_per_block": ppb,
+            "blocks_per_site": -(-P_b // ppb)}
 
 
 def det_fill_plain(M, det_always, occ_b, occ_k, pr, pc, tabs, *, spec: str,
@@ -372,8 +455,10 @@ def det_fill(M, det_always, occ_b, occ_k, pr, pc, tabs, *, spec: str, shape: tup
     D1 = shape[1]
     D2 = shape[2] if len(shape) == 3 else 1
     out, slot = fill_buffer(out, slot, G, shape, M.dtype, dev)
-    slot_t = torch.tensor(slot, dtype=torch.int32, device=dev)
+    # from pinned memory: the copy does not wait for the stream
+    slot_t = torch.tensor(slot, dtype=torch.int32).pin_memory().to(dev, non_blocking=True)
     n2 = t2.shape[1] if len(shape) == 3 else 0
+    geo = det_fill_geometry(w, pr.shape[1], G, M.dtype)
     lib = _build.load()
     with _on_device(dev):
         err = lib.tf_det_fill(
@@ -382,7 +467,7 @@ def det_fill(M, det_always, occ_b, occ_k, pr, pc, tabs, *, spec: str, shape: tup
             t0.data_ptr(), t1.data_ptr(), t2.data_ptr(), slot_t.data_ptr(), out.data_ptr(),
             G, m, w, occ_b.shape[1], occ_k.shape[1], pr.shape[1],
             t0.shape[1], t1.shape[1], n2, SPECS[spec], shape[0] + 1, D1, D2,
-            _stream_ptr(dev),
+            geo["pairs_per_block"], _stream_ptr(dev),
         )
     _raise_on(err, "det_fill")
     det_fill.launches += 1

@@ -163,12 +163,13 @@ def random_det_fill_case(seed: int, *, G: int, w: int, m: int, P: int, spec: str
     """Seeded inputs of :func:`temfpy_torch.ops.kernels.det_fill` shaped like
     one fill group of the main path: ``G`` sites, sometimes matrices (m, m),
     occupation tables of ``n_rows`` bond rows of width ``w`` (each row
-    occupies w, w-1 or w-2 orbitals, the rest sentinels; the last row all
-    sentinels), ``P`` distinct charge-matching pairs padded to a power of
-    two, and injective scatter tables.  Returns (args, kwargs) as numpy."""
+    occupies c, c-1 or c-2 orbitals, c = min(w, m), at least none, the rest
+    sentinels; the last row all sentinels), ``P`` distinct charge-matching
+    pairs padded to a power of two, and injective scatter tables.  Returns
+    (args, kwargs) as numpy."""
     rng = np.random.default_rng(seed)
     R = K = n_rows
-    cnt = w - (np.arange(R) % 3)
+    cnt = np.maximum(min(w, m) - (np.arange(R) % 3), 0)
     cnt[-1] = 0
 
     def occ_table():

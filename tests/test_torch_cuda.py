@@ -500,3 +500,120 @@ def test_dmma_fragment_layout(cuda):
     D = kernels.dmma_probe(A.to(cuda), B.to(cuda))
     assert kernels.dmma_probe.launches == before + 1
     assert torch.equal(D.cpu(), torch.matmul(A, B))
+
+
+def _det_fill_cuda_case(cuda, seed, w, spec="rrc", dtype="float64", m=None, P=3000, G=3,
+                        integer=False):
+    args, kw = testing.random_det_fill_case(seed, G=G, w=w, m=m or max(w, 24), P=P, spec=spec,
+                                            n_rows=256, dtype=dtype)
+    M = np.round(2 * args[0]) if integer else args[0]
+    a = [torch.as_tensor(x, device=cuda) for x in (M, *args[1:6])]
+    a.append(tuple(torch.as_tensor(t, device=cuda) for t in args[6]))
+    return a, kw
+
+
+@pytest.mark.parametrize("w", list(range(1, 65)))
+def test_det_fill_every_width(cuda, w):
+    """Each width pads to its template width (4, 8, 16, 32, 64) with identity
+    rows and columns; the three scatter layouts in turn, pad pairs (3000 of
+    4096), different M per site."""
+    a, kw = _det_fill_cuda_case(cuda, 100 + w, w, spec=("rc", "rrc", "crr")[w % 3])
+    assert _rel(kernels.det_fill(*a, **kw), kernels.det_fill_plain(*a, **kw)) <= RTOL
+
+
+@pytest.mark.parametrize("w", [3, 8, 13, 16, 24, 32, 40, 64])
+@pytest.mark.parametrize("dtype", ["float64", "complex128"])
+def test_det_fill_pivot_ties_and_zero_pivots(cuda, w, dtype):
+    """M with entries in {-2, ..., 2}: exact ties in the pivot search, zero
+    pivots and singular submatrices (det 0 without a division)."""
+    a, kw = _det_fill_cuda_case(cuda, 7 * w, w, spec="crr", dtype=dtype, integer=True)
+    got, ref = kernels.det_fill(*a, **kw), kernels.det_fill_plain(*a, **kw)
+    assert bool(torch.isfinite(got).all()) and _rel(got, ref) <= RTOL
+
+
+def test_det_fill_all_sentinel_pairs(cuda):
+    """A group whose pairs are all pad pairs writes only the trash rows: the
+    sliced buffer stays zero."""
+    a, kw = _det_fill_cuda_case(cuda, 5, 16, P=300)
+    pad_r, pad_c = a[2].shape[1] - 1, a[3].shape[1] - 1
+    a[4] = torch.full_like(a[4], pad_r)
+    a[5] = torch.full_like(a[5], pad_c)
+    got = kernels.det_fill(*a, **kw)
+    assert not bool(got.any()) and not bool(kernels.det_fill_plain(*a, **kw).any())
+
+
+def _overlap_cuda_case(cuda, seed, kb, sb, mode, dtype="float64", L=320, G=3):
+    args, kw = testing.random_site_overlap_case(seed, G=G, L=L, kb=kb, sb=sb, mode=mode,
+                                                dtype=dtype)
+    a = [torch.as_tensor(x, device=cuda) for x in args]
+    for i in (2, 3, 4, 6, 7, 8):
+        a[i] = a[i].to(torch.int32)
+    return a, kw
+
+
+@pytest.mark.parametrize("mode", ["left", "right"])
+@pytest.mark.parametrize("kb,sb,dtype", [(136, 32, "float64"), (137, 32, "float64"),
+                                         (138, 32, "float64"), (144, 32, "float64"),
+                                         (256, 32, "float64"), (0, 170, "float64"),
+                                         (0, 16, "float64"), (88, 32, "complex128"),
+                                         (89, 32, "complex128")])
+def test_site_overlap_around_the_old_limit(cuda, mode, kb, sb, dtype):
+    """mb = 168, 169 (the default wrapper), 170, 176, 288 (the wide one) in
+    float64 and 120, 121 in complex128, and kb = 0 (S = O, det 1)."""
+    a, kw = _overlap_cuda_case(cuda, kb + sb, kb, sb, mode, dtype)
+    wide = not kernels.site_overlap_fits_smem(kb + sb, a[0].dtype)
+    smem, gmem = kernels.site_overlap_schur.launches, kernels.site_overlap_schur_gmem.launches
+    d1, s1 = kernels.site_overlap_schur(*a, **kw)
+    assert (kernels.site_overlap_schur_gmem.launches - gmem,
+            kernels.site_overlap_schur.launches - smem) == ((1, 0) if wide else (0, 1))
+    d0, s0 = kernels.site_overlap_schur_plain(*a, **kw)
+    assert _rel(d1, d0) <= RTOL
+    assert _rel(d1[:, None, None] * s1, d0[:, None, None] * s0) <= RTOL
+    if kb == 0:
+        assert bool((d1 == 1).all())
+
+
+@pytest.mark.parametrize("kb,sb", [(1, 8), (2, 8), (3, 5), (32, 16), (65, 7), (96, 32)])
+@pytest.mark.parametrize("dtype", ["float64", "complex128"])
+def test_site_overlap_wide_path_on_narrow_sites(cuda, kb, sb, dtype):
+    """The wide wrapper on sites that fit one block: its cluster of two (or,
+    at kb = 1, one) blocks against the twin and the default wrapper."""
+    a, kw = _overlap_cuda_case(cuda, 3 * kb + sb, kb, sb, "right", dtype, L=128)
+    d1, s1 = kernels.site_overlap_schur_gmem(*a, **kw)
+    d0, s0 = kernels.site_overlap_schur_plain(*a, **kw)
+    assert _rel(d1, d0) <= RTOL
+    assert _rel(d1[:, None, None] * s1, d0[:, None, None] * s0) <= RTOL
+    d2, s2 = kernels.site_overlap_schur(*a, **kw)
+    assert _rel(d2, d0) <= RTOL and _rel(d2[:, None, None] * s2, d0[:, None, None] * s0) <= RTOL
+
+
+@pytest.mark.parametrize("mode", ["left", "right"])
+@pytest.mark.parametrize("kb,sb,dtype", [(384, 32, "float64"), (257, 31, "complex128"),
+                                         (160, 160, "complex128"), (64, 536, "float64"),
+                                         (0, 600, "float64")])
+def test_site_overlap_past_a_cluster(cuda, mode, kb, sb, dtype):
+    """Always blocks no cluster holds (float64 kb=384 at mb=416; complex128
+    kb=257 at mb=288 and kb=160 at mb=320; mb=600 past any cluster's
+    width): the global-memory elimination through either wrapper, against
+    the twin, twice for the same bits."""
+    a, kw = _overlap_cuda_case(cuda, kb + sb, kb, sb, mode, dtype, L=640, G=2)
+    assert kernels.schur_layout(kb, kb + sb, a[0].dtype)[0] == 0
+    d0, s0 = kernels.site_overlap_schur_plain(*a, **kw)
+    for wrapper in (kernels.site_overlap_schur, kernels.site_overlap_schur_gmem):
+        (d1, s1), (d2, s2) = wrapper(*a, **kw), wrapper(*a, **kw)
+        assert _rel(d1, d0) <= RTOL
+        assert _rel(d1[:, None, None] * s1, d0[:, None, None] * s0) <= RTOL
+        assert torch.equal(_bits(d1), _bits(d2)) and torch.equal(_bits(s1), _bits(s2))
+
+
+def test_fill_kernels_repeat_bit_for_bit(cuda):
+    """Two launches of K1 (every template width) and of K2 (both wrappers,
+    both dtypes) on the same inputs return the same bits."""
+    for w in (4, 8, 16, 24, 64):
+        a, kw = _det_fill_cuda_case(cuda, w, w, spec="rrc")
+        assert torch.equal(_bits(kernels.det_fill(*a, **kw)), _bits(kernels.det_fill(*a, **kw)))
+    for kb, sb, dtype in ((64, 24, "float64"), (256, 32, "float64"), (89, 32, "complex128")):
+        a, kw = _overlap_cuda_case(cuda, kb, kb, sb, "left", dtype)
+        for wrapper in (kernels.site_overlap_schur, kernels.site_overlap_schur_gmem):
+            (d1, s1), (d2, s2) = wrapper(*a, **kw), wrapper(*a, **kw)
+            assert torch.equal(_bits(d1), _bits(d2)) and torch.equal(_bits(s1), _bits(s2))
