@@ -1,7 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (temfpy_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+(``--parent DIR``: a ``git archive`` of an earlier commit unpacked into
+DIR; its K1, K6b and K11a run beside this checkout's on every held call,
+timed alike and compared bit for bit, :data:`PARENT`, and K1 is timed in
+turns against it first, :func:`phase_parent_ab`.)
 
 Phases, each printing a line; any failure raises and exits non-zero:
 
@@ -101,16 +106,19 @@ launches after a warm one, on the same captured inputs; the kernel's
 one-call time with its wrapper's host work is printed beside; a library
 call takes the whole pre-gathered batch of a group, in chunks of
 LIBRARY_CHUNK_BYTES); the redesigned ``det_fill``,
-``site_overlap_schur`` (both wrappers), ``fw_frame_slab`` and
-``rsf_tsprod`` must also return the same bits from two launches on each
-held input.  Phase 7 also meters every K1/K2 launch of one more exact
-conversion, untimed (:func:`conversion_meter`: device time, work and
-bound over the whole conversion).  The last line is ``{"ok": true, "device":
-{...}}``.  Imports nothing of JAX.
+``site_overlap_schur`` (both wrappers), ``swap_fill``, ``fw_frame_slab``,
+``rsf_apply`` and ``rsf_tsprod`` must also return the same bits from two
+launches on each held input.  Untimed conversions are metered
+(:class:`ConversionMeter`: device time, work and bound of every launch over
+the whole conversion): every K1/K2 launch of one more exact conversion in
+phase 7, every K6b, K5 and K6a launch of one more rank-update conversion in
+phase 8, every K11a launch of phase 9's disordered conversion.  The last
+line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
 import contextlib
 import copy
+import importlib
 import json
 import os
 import subprocess
@@ -244,6 +252,77 @@ def check_repeatable(torch, label, fn, out):
     """Raises unless one more call of ``fn`` returns ``out`` bit for bit."""
     if not bitwise_equal(torch, fn(), out):
         raise AssertionError(f"{label}: two launches on the same input differ")
+
+
+PARENT = None
+"""The parent commit's ``temfpy_torch.ops.kernels`` (``--parent DIR``: a
+``git archive`` of that commit unpacked into DIR, its kernels built from
+its own sources), or None.  Where given, every held and timed call of the
+kernels in PARENT_KERNELS also runs through the parent's wrapper and
+kernel on the same inputs: its time on the same yardstick and whether its
+output has the same bits."""
+PARENT_KERNELS = ("det_fill", "swap_fill", "rsf_apply")
+
+
+def load_parent(path):
+    """The kernels module of the ``temfpy_torch`` package under ``path``,
+    imported as ``temfpy_torch_parent`` beside this checkout's package."""
+    import importlib.util
+
+    init = Path(path).resolve() / "temfpy_torch" / "__init__.py"
+    spec = importlib.util.spec_from_file_location("temfpy_torch_parent", init,
+                                                  submodule_search_locations=[str(init.parent)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module("temfpy_torch_parent.ops.kernels")
+
+
+def against_parent(torch, label, name, args, kw, out):
+    """With PARENT and ``name`` in PARENT_KERNELS: the parent's kernel on the
+    same inputs (a fill into a fresh zeroed buffer), printed as its
+    :func:`cuda_ms` time, whether its output has ``out``'s bits and the
+    largest absolute difference; returns the time (else None)."""
+    if PARENT is None or name not in PARENT_KERNELS:
+        return None
+    fn = getattr(PARENT, name)
+    fresh = (lambda: {**kw, "out": torch.zeros_like(kw["out"])}) if "out" in kw else (
+        lambda: kw)
+    ref = fn(*args, **fresh())
+    same = bitwise_equal(torch, ref, out)
+    diff = max((float((a - b).abs().max()) if a.numel() else 0.0)
+               for a, b in zip(rsf_outputs(ref), rsf_outputs(out)))
+    k = fresh()
+    t = cuda_ms(lambda: fn(*args, **k), TIMING_REPS)
+    print(f"{label}: parent {name}: {t:.3f} ms; bits {'equal' if same else 'DIFFER'} (max "
+          f"abs diff {diff:.3e})", flush=True)
+    return t
+
+
+def phase_parent_ab(torch, kernels, testing):
+    """With PARENT: K1 ``det_fill`` of this checkout (its LU shared with K6b
+    in ``common.cuh``) against the parent's, on seeded groups shaped like
+    the L=1024 conversion's largest buckets (w = 16, 8, 5; 45-60 sites of
+    32k-131k pairs), timed in turns (parent, new, new, parent, twice;
+    :func:`cuda_ms`, 10 launches each) into buffers of their own, and the
+    two outputs compared bit for bit."""
+    dev = torch.device("cuda")
+    for w, G, P_b in ((16, 45, 131072), (8, 45, 65536), (5, 60, 32768)):
+        args, kw = testing.random_det_fill_case(w, G=G, w=w, m=32, P=P_b, spec="rrc")
+        a = [torch.as_tensor(x, device=dev) for x in args[:6]]
+        a.append(tuple(torch.as_tensor(t, device=dev) for t in args[6]))
+        shape = kw["shape"]
+        bufs = {k: torch.zeros((G, shape[0] + 1) + tuple(shape[1:]), dtype=a[0].dtype,
+                               device=dev) for k in ("new", "parent")}
+        ts = {"new": [], "parent": []}
+        for who in ("parent", "new", "new", "parent") * 2:
+            fn = kernels.det_fill if who == "new" else PARENT.det_fill
+            kk = {**kw, "out": bufs[who], "slot": list(range(G))}
+            ts[who].append(cuda_ms(lambda: fn(*a, **kk), 10))
+        same = bitwise_equal(torch, bufs["new"], bufs["parent"])
+        print(f"parent A/B: det_fill w={w} G={G} P_b={P_b}: parent "
+              f"{[round(t, 4) for t in ts['parent']]} ms, new {[round(t, 4) for t in ts['new']]} "
+              f"ms; bits {'equal' if same else 'DIFFER'}", flush=True)
 
 
 def rel_err(a, b):
@@ -591,7 +670,7 @@ COMPOSITION = ("site_overlap_schur", "site_overlap_schur_gmem")
 """Kernels whose library time is a composition of several calls: printed
 and kept as ``composition_ms``, while the ``kernels`` line's
 ``library_ms`` (one call computing the same function) stays null."""
-REPEATED = ("det_fill", "site_overlap_schur", "site_overlap_schur_gmem")
+REPEATED = ("det_fill", "site_overlap_schur", "site_overlap_schur_gmem", "swap_fill")
 """Redesigned kernels whose captured groups must also return the same bits
 from a second launch (:func:`check_repeatable`)."""
 
@@ -641,6 +720,7 @@ def phase_captured(torch, kernels, label, groups_by_name):
         kname, pname, _err, _ext, cost, library = CAPTURED[name]
         kernel, plain = getattr(kernels, kname), getattr(kernels, pname)
         ms = ms_1 = plain_ms = worst = lib_ms = bnd = flops = nbyte = 0.0
+        par_ms = None
         for key, (args, kw) in sorted(groups.items()):
             rel, ab, _held = hold(torch, kernels, label, name, key, args, kw)
             kw_t = dict(kw)
@@ -658,6 +738,7 @@ def phase_captured(torch, kernels, label, groups_by_name):
                     lambda: kernel(*args, **{**kw_t, "out": torch.zeros_like(kw_t["out"])}))
                 check_repeatable(torch, f"{label}: {name} {key}", again,
                                  tuple(t.clone() for t in rsf_outputs(out)))
+            t_par = against_parent(torch, f"{label}: {name} {key}", name, args, kw_t, out)
             t_k = cuda_ms(call, TIMING_REPS)
             _, t_p = timed(torch, lambda: plain(*args, **kw_t))
             f, b = (float(x) for x in cost(torch, args, kw, out))
@@ -672,7 +753,11 @@ def phase_captured(torch, kernels, label, groups_by_name):
             ms, ms_1, plain_ms, worst = ms + t_k, ms_1 + t_1, plain_ms + t_p, max(worst, ab)
             bnd, flops, nbyte = bnd + t_b, flops + f, nbyte + b
             lib_ms += t_l or 0.0
+            par_ms = None if t_par is None else (par_ms or 0.0) + t_par
         by = bound_ms(flops, nbyte)[1]
+        if par_ms is not None:
+            print(f"{label}: {name} on {len(groups)} main-path groups: parent kernel "
+                  f"{par_ms:.3f} ms -> kernel {ms:.3f} ms (cuda_ms, the same inputs)", flush=True)
         print(f"{label}: {name} on {len(groups)} main-path groups: kernel {ms:.3f} ms (one "
               f"call each {ms_1:.3f} ms), plain {plain_ms:.3f} ms, bound {bnd:.4f} ms ({by}; "
               f"{flops:.3e} operations, {nbyte:.3e} bytes)"
@@ -808,63 +893,98 @@ def slater_capture(slater, fw, every=()):
 
 
 METER_SLEEP_CYCLES = 2_000_000
-"""Device clock cycles (~1 ms on an H100) that :func:`conversion_meter`
+"""Device clock cycles (~1 ms on an H100) that :class:`ConversionMeter`
 keeps the stream busy before each metered launch, so that the event
 before the launch completes only after the wrapper's host work has queued
 the kernel and the events bracket its device work alone (with det_fill's
 slot upload, a few bytes).  The metered conversion is timed by no one."""
 
 
-@contextlib.contextmanager
-def conversion_meter(torch, slater, kernels):
-    """Meters every K1/K2 launch of the conversions run inside it: wraps
-    ``slater.det_fill`` and ``slater.site_overlap_schur`` and yields, per
-    kernel (``det_fill``, ``site_overlap_schur``, ``site_overlap_schur_gmem``
-    by the width's dispatch), its launches, its device milliseconds (CUDA
-    events around each call after a short device sleep; no
-    synchronisation) and the operations and bytes of :func:`det_fill_cost`
-    / :func:`overlap_cost` summed over every launch, computed on the device
-    at the call; no argument is kept.  Read the totals after the block."""
-    names = ("det_fill", "site_overlap_schur")
-    orig = {n: getattr(slater, n) for n in names}
-    per = {k: {"launches": 0, "events": [], "flops": 0.0, "bytes": 0.0}
-           for k in ("det_fill", "site_overlap_schur", "site_overlap_schur_gmem")}
+class ConversionMeter:
+    """Meters every launch of the kernels it wraps over whole conversions:
+    per record, the launches, the device milliseconds (CUDA events around
+    each call after a short device sleep, so the wrapper's host time is not
+    counted, unless the wrapper synchronises: K6b's scatter mode uploads its
+    slot table with a synchronous copy, and the host work after it lands
+    inside the events) and the operations and bytes of the call's cost
+    function, summed over every launch.  Read :meth:`totals` after the
+    conversions."""
 
-    def metered(key, fn, cost, args, kw, **extra):
-        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-        torch.cuda._sleep(METER_SLEEP_CYCLES)
-        ev[0].record()
-        out = fn(*args, **kw, **extra)
-        ev[1].record()
-        f, b = cost(torch, args, kw, out)
-        rec = per[key]
-        rec["launches"] += 1
-        rec["events"].append(ev)
-        rec["flops"] = rec["flops"] + f
-        rec["bytes"] = rec["bytes"] + b
+    def __init__(self, torch):
+        self.torch = torch
+        self.per = {}
+
+    def wrap(self, fn, key, cost):
+        """``fn`` with each call metered into record ``key(args, kw)``;
+        ``cost(args, kw, out)`` gives its (operations, bytes), host numbers
+        or device tensors (``out``/``slot`` keywords are not passed to
+        either)."""
+        torch = self.torch
+
+        def call(*args, **kw):
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            torch.cuda._sleep(METER_SLEEP_CYCLES)
+            ev[0].record()
+            out = fn(*args, **kw)
+            ev[1].record()
+            work = {k: v for k, v in kw.items() if k not in ("out", "slot")}
+            f, b = cost(args, work, out)
+            rec = self.per.setdefault(key(args, work), {"launches": 0, "events": [],
+                                                        "flops": 0.0, "bytes": 0.0})
+            rec["launches"] += 1
+            rec["events"].append(ev)
+            rec["flops"] = rec["flops"] + f
+            rec["bytes"] = rec["bytes"] + b
+            return out
+        return call
+
+    def totals(self):
+        """Per record: launches, device ``ms``, ``flops``, ``bytes`` and the
+        bound of that work (``bound_ms``, ``bound_by``)."""
+        self.torch.cuda.synchronize()
+        out = {}
+        for name, rec in sorted(self.per.items()):
+            f, b = float(rec["flops"]), float(rec["bytes"])
+            t_b, by = bound_ms(f, b)
+            out[name] = {"launches": rec["launches"], "flops": f, "bytes": b, "bound_ms": t_b,
+                         "bound_by": by,
+                         "ms": sum(a.elapsed_time(e) for a, e in rec["events"])}
         return out
 
-    def fill(*args, out=None, slot=None, **kw):
-        return metered("det_fill", orig["det_fill"], det_fill_cost, args, kw, out=out,
-                       slot=slot)
+    def report(self, label, what):
+        for name, c in self.totals().items():
+            print(f"{label}: {what}, {name}: {c['launches']} launches, device {c['ms']:.3f} ms "
+                  f"(events around each launch), bound {c['bound_ms']:.4f} ms "
+                  f"({c['bound_by']}; {c['flops']:.4e} operations, {c['bytes']:.4e} bytes)",
+                  flush=True)
 
-    def overlap(*args, **kw):
-        key = ("site_overlap_schur" if kernels.site_overlap_fits_smem(args[2].shape[-1],
-                                                                      args[0].dtype)
-               else "site_overlap_schur_gmem")
-        return metered(key, orig["site_overlap_schur"], overlap_cost, args, kw)
 
-    slater.det_fill, slater.site_overlap_schur = fill, overlap
+@contextlib.contextmanager
+def patched(owner, **attrs):
+    """Sets attributes of ``owner`` for the block, restoring them after."""
+    saved = {k: getattr(owner, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(owner, k, v)
     try:
-        yield per
+        yield
     finally:
-        for n, f in orig.items():
-            setattr(slater, n, f)
-        torch.cuda.synchronize()
-        for rec in per.values():
-            rec["ms"] = sum(a.elapsed_time(b) for a, b in rec.pop("events"))
-            rec["flops"], rec["bytes"] = float(rec["flops"]), float(rec["bytes"])
-            rec["bound_ms"], rec["bound_by"] = bound_ms(rec["flops"], rec["bytes"])
+        for k, v in saved.items():
+            setattr(owner, k, v)
+
+
+def fill_meter(torch, slater, kernels, meter):
+    """The patches that meter every K1/K2 launch of a Slater conversion
+    (``site_overlap_schur`` or ``site_overlap_schur_gmem`` by the width's
+    dispatch), for :func:`patched` on ``slater``."""
+    def overlap_key(args, kw):
+        return ("site_overlap_schur" if kernels.site_overlap_fits_smem(args[2].shape[-1],
+                                                                       args[0].dtype)
+                else "site_overlap_schur_gmem")
+
+    return {"det_fill": meter.wrap(slater.det_fill, lambda a, k: "det_fill",
+                                   lambda a, k, o: det_fill_cost(torch, a, k, o)),
+            "site_overlap_schur": meter.wrap(slater.site_overlap_schur, overlap_key,
+                                             lambda a, k, o: overlap_cost(torch, a, k, o))}
 
 
 def check_captured_slater(torch, kernels, label, cap):
@@ -1785,7 +1905,7 @@ def phase_slice(torch, np, slater, fw, kernels, profiling):
     one stream block (:func:`stream_block`); then one conversion with the
     default exact device frontend, timed for the frontend comparison and
     held against the FW state (:func:`frontend_checks`), and one more,
-    untimed, with every K1/K2 launch metered (:func:`conversion_meter`:
+    untimed, with every K1/K2 launch metered (:class:`ConversionMeter`:
     device time, work and bound over the whole conversion).  Returns the
     launches, the records and the exact frontend's states (bench config 1
     and its disordered twin), warm time and eigh_batch stage, which phase 9
@@ -1810,13 +1930,10 @@ def phase_slice(torch, np, slater, fw, kernels, profiling):
     print(prof.report(), flush=True)
     # the meter's sleeps, events and cost sums run in a conversion of their
     # own, so that they touch neither the time above nor its stages
-    with conversion_meter(torch, slater, kernels) as conv:
+    meter = ConversionMeter(torch)
+    with patched(slater, **fill_meter(torch, slater, kernels, meter)):
         slater.H_to_MPS(H, {"chi_max": 512}, device="cuda")
-    for name, c in conv.items():
-        print(f"phase 7: exact conversion, {name}: {c['launches']} launches, device "
-              f"{c['ms']:.3f} ms (events around each launch), bound {c['bound_ms']:.4f} ms "
-              f"({c['bound_by']}; {c['flops']:.4e} operations, {c['bytes']:.4e} bytes)",
-              flush=True)
+    meter.report("phase 7", "exact conversion")
     ex_d = frontend_checks(torch, np, slater, fw, H, 512, res["raw"], exact)
     return res["launches"], res["rec"], {"exact": exact, "exact_dis": ex_d, "t_exact": t_ex,
                                          "eigh_exact": prof.seconds.get("eigh_batch", 0.0)}
@@ -2233,7 +2350,16 @@ def phase_swap_kernels(torch, kernels, testing):
         t_p = cuda_ms(lambda: kernels.swap_fill_plain(*fa, ta, **kw), 1)
         label = f"s_b={s_b} w_b={r0.shape[1]} m={m} {spec} {dt} U=8 P=60000"
         check("swap_fill", label + " scatter", T, T0, t_k, t_p)
+        check_repeatable(torch, f"phase 3d: swap_fill {label} scatter",
+                         lambda: kernels.swap_fill(*fa, ta, **{**kw_in, "out": torch.zeros_like(
+                             buf)}).flip(0), T.clone())
+        against_parent(torch, f"phase 3d: swap_fill {label} scatter", "swap_fill", (*fa, ta),
+                       kw_in, kernels.swap_fill(*fa, ta, **kw_in))
         v = kernels.swap_fill(*fa, s_b=s_b)
+        check_repeatable(torch, f"phase 3d: swap_fill {label} values",
+                         lambda: kernels.swap_fill(*fa, s_b=s_b), v)
+        against_parent(torch, f"phase 3d: swap_fill {label} values", "swap_fill", fa,
+                       {"s_b": s_b}, v)
         check("swap_fill", label + " values", v, kernels.swap_fill_plain(*fa, s_b=s_b),
               cuda_ms(lambda: kernels.swap_fill(*fa, s_b=s_b), 5),
               cuda_ms(lambda: kernels.swap_fill_plain(*fa, s_b=s_b), 1))
@@ -2449,7 +2575,22 @@ def phase_swap_slice(torch, np, slater, fw, kernels, profiling, direct):
           f"{times['1']} s, direct path {times['0']} s", flush=True)
     for mode, name in (("1", "swap path"), ("0", "direct path")):
         print(f"phase 8: stage profile, {name}:\n{reports[mode]}", flush=True)
+    # every K6b launch, and K5's and K6a's beside it, of one more rank-update
+    # conversion, untimed
+    meter = ConversionMeter(torch)
+    with patched(slater, **swap_meter(torch, slater, meter)):
+        with_det_updates("1", lambda: slater.H_to_MPS(H, {"chi_max": 512}, device="cuda"))
+    meter.report("phase 8", "rank-update conversion")
     return res["launches"], res["rec"]
+
+
+def swap_meter(torch, slater, meter):
+    """The patches that meter every swap_tables, swap_fill and det_rows
+    launch of a rank-update conversion, for :func:`patched` on ``slater``."""
+    return {name: meter.wrap(getattr(slater, name), lambda a, k, n=name: n,
+                             lambda a, k, o, c=cost: c(torch, a, k, o))
+            for name, cost in (("swap_tables", swap_tables_cost), ("swap_fill", swap_fill_cost),
+                               ("det_rows", det_rows_cost))}
 
 
 # --------------------------------------------------------------------------
@@ -2621,16 +2762,19 @@ class RsfRecords:
 
     def add(self, torch, kernels, label, name, mode, args, kw):
         """One call of kernel ``name`` against its twin: fails beyond the
-        tolerance, and for the redesigned ``rsf_tsprod`` unless a second
-        launch returns the same bits; times kernel, twin and library call
+        tolerance, and for the redesigned ``rsf_apply`` and ``rsf_tsprod``
+        unless a second launch returns the same bits (and, with PARENT, runs
+        the parent's kernel beside: :func:`against_parent`); times kernel,
+        twin and library call
         alike (:func:`cuda_ms`, TIMING_REPS) and the kernel's one call
         with its wrapper's host work (:func:`timed`); returns the kernel's
         output."""
         kernel, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
         call = lambda: kernel(mode, *args, **kw)  # noqa: E731
         out, t_1 = timed(torch, call)
-        if name == "rsf_tsprod":
+        if name in ("rsf_apply", "rsf_tsprod"):
             check_repeatable(torch, f"{label}: {name} {mode}", call, out)
+        t_par = against_parent(torch, f"{label}: {name} {mode}", name, (mode, *args), kw, out)
         t_k = cuda_ms(call, TIMING_REPS)
         ref = plain(mode, *args, **kw)
         t_p = cuda_ms(lambda: plain(mode, *args, **kw), TIMING_REPS)
@@ -2649,6 +2793,8 @@ class RsfRecords:
         r["flops"] += f
         r["bytes"] += b
         r["calls"] += 1
+        if t_par is not None:
+            r["parent_ms"] = r.get("parent_ms", 0.0) + t_par
         if lib is not None:
             r["library_ms"] = (r["library_ms"] or 0.0) + lib
         return out, (rel, ab, t_k, t_1, t_p, bound_ms(f, b), lib)
@@ -2670,7 +2816,8 @@ class RsfRecords:
                   f"each {r['ms_1call']:.3f} ms), plain "
                   f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
                   f"({bound_ms(r['flops'], r['bytes'])[1]}; {r['flops']:.3e} operations, "
-                  f"{r['bytes']:.3e} bytes){lib}; max abs err {r['max_abs_err']:.3e}",
+                  f"{r['bytes']:.3e} bytes){lib}; max abs err {r['max_abs_err']:.3e}"
+                  + (f"; parent kernel {r['parent_ms']:.3f} ms" if "parent_ms" in r else ""),
                   flush=True)
 
 
@@ -2749,7 +2896,6 @@ def rsf_hold_chunks(torch, kernels, spectral, C, chunks, label):
     exact frontend, so their kernel outputs are dropped) and raises if no
     chunk keeps one."""
     recs = RsfRecords()
-    saved = spectral._KERNEL_OPS
 
     def wrap(name):
         def f(mode, *args, **kw):
@@ -2757,13 +2903,10 @@ def rsf_hold_chunks(torch, kernels, spectral, C, chunks, label):
         return f
 
     kept = []
-    spectral._KERNEL_OPS = tuple(wrap(n) for n in RSF_KERNELS)
-    try:
+    with patched(spectral, _KERNEL_OPS=tuple(wrap(n) for n in RSF_KERNELS)):
         for side, sizes in chunks:
             fallback = spectral.rsf_sweep_frames(C, sizes, side, 0.0)[3]
             kept.append(len(sizes) - len(fallback))
-    finally:
-        spectral._KERNEL_OPS = saved
     print(f"{label}: held chunks (side, sizes) -> cuts kept: "
           f"{ {(side, f'{sz[0]}..{sz[-1]}'): k for (side, sz), k in zip(chunks, kept)} }",
           flush=True)
@@ -2850,10 +2993,14 @@ def phase_rsf_slice(torch, np, slater, fw, kernels, profiling, spectral, ph7):
     del C
     clean = compare_frontends(np, res["raw"], ph7["exact"])
     Hd = H + np.diag(1e-3 * np.random.default_rng(3).normal(size=L))
-    t0 = time.perf_counter()
-    rsf_d = with_rsf("1", lambda: slater.H_to_MPS(Hd, {"chi_max": 512}, device="cuda"))
-    torch.cuda.synchronize()
-    t_d = time.perf_counter() - t0
+    # every K11a launch of this conversion metered (it is timed by no one)
+    meter = ConversionMeter(torch)
+    ops = spectral._KERNEL_OPS
+    apply = meter.wrap(ops[0], lambda a, k: "rsf_apply",
+                       lambda a, k, o: rsf_cost("rsf_apply", a[0], a[1:], k, o))
+    with patched(spectral, _KERNEL_OPS=(apply, *ops[1:])):
+        rsf_d = with_rsf("1", lambda: slater.H_to_MPS(Hd, {"chi_max": 512}, device="cuda"))
+    meter.report("phase 9", "disordered RSF conversion")
     stats_d = spectral.rsf_stats()
     dis = compare_frontends(np, rsf_d, ph7["exact_dis"])
     del rsf_d
@@ -2867,7 +3014,7 @@ def phase_rsf_slice(torch, np, slater, fw, kernels, profiling, spectral, ph7):
           f"this size {res['warm']:.3f} s (eigh_batch {eig_rsf:.3f} s, of it rsf/eigh "
           f"{res['prof'].seconds.get('rsf/eigh', 0.0):.3f} s), exact frontend (phase 7) "
           f"{ph7['t_exact']:.3f} s (eigh_batch {ph7['eigh_exact']:.3f} s); disordered RSF "
-          f"conversion {t_d:.2f} s, cuts {stats_d}", flush=True)
+          f"conversion (metered, untimed): cuts {stats_d}", flush=True)
     failures = []
     if stats["cuts"] != L or stats_d["cuts"] != L:
         failures.append(f"the frontend did not take every cut: {stats}, {stats_d}")
@@ -2884,10 +3031,17 @@ def phase_rsf_slice(torch, np, slater, fw, kernels, profiling, spectral, ph7):
     return res["launches"], rec
 
 
-def main() -> int:
+def main(argv) -> int:
+    global PARENT
     if not (ROOT / "temfpy_torch" / "__init__.py").is_file():
         print("chip_smoke: the temfpy_torch package is not beside this script",
               file=sys.stderr)
+        return 2
+    parent = None
+    if argv[:1] == ["--parent"] and len(argv) == 2:
+        parent = argv[1]
+    elif argv:
+        print("usage: python3 chip_smoke.py [--parent DIR]", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
     import numpy as np
@@ -2916,6 +3070,12 @@ def main() -> int:
     _build.load()
     print(f"phase 2: kernels built and loaded in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.build_seconds})", flush=True)
+    if parent is not None:
+        t0 = time.perf_counter()
+        PARENT = load_parent(parent)
+        importlib.import_module("temfpy_torch_parent.ops._build").load()
+        print(f"phase 2: the parent's kernels (from {parent}) built and loaded in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     t_start = time.perf_counter()
 
@@ -2925,6 +3085,8 @@ def main() -> int:
     # the phases of the earlier slices run the direct fill on both devices
     # (the CPU's default is the rank-update path); 4e and 8 turn it on
     os.environ["TEMFPY_TORCH_DET_UPDATES"] = "0"
+    if PARENT is not None:
+        phase_parent_ab(torch, kernels, testing)
     worst = phase_kernels(torch, kernels, testing)
     elapsed("phase 3")
     worst.update(phase_pf_kernels(torch, kernels, testing))
@@ -3027,4 +3189,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -7,6 +7,7 @@
 #include <math.h>
 
 #include <atomic>
+#include <type_traits>
 
 struct __align__(16) c128 {
     double re, im;
@@ -102,8 +103,8 @@ __device__ __forceinline__ int block_argmax_first(double v, int i) {
 // thread, by LU with partial pivoting: the first row of maximal |A[i, k]|
 // (i >= k) is the pivot, as in temfpy_tpu/ops/linalg.py:_lu_det_body; a
 // zero pivot makes the determinant 0 without dividing by it.  A is
-// overwritten.  Used by det_rows and swap_fill (det_fill keeps its rows in
-// registers, csrc/det_fill.cu).
+// overwritten.  Used by det_rows (det_fill and swap_fill keep their rows in
+// registers: segment_lu_det).
 template <typename T, int W>
 __device__ __forceinline__ T lu_det_private(T* A, int w) {
     T det = Num<T>::one();
@@ -131,6 +132,123 @@ __device__ __forceinline__ T lu_det_private(T* A, int w) {
         for (int i = k + 1; i < w; ++i) {
             const T f = A[i * W + k] / safe;
             for (int j = k + 1; j < w; ++j) A[i * W + j] = A[i * W + j] - f * A[k * W + j];
+        }
+    }
+    return det;
+}
+
+// ---- register-resident small LUs (det_fill.cu, swap_fill.cu) ----
+
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// Lanes of the segment that holds one W x W matrix in registers (kernels.
+// det_fill_geometry and swap_fill_geometry mirror it): each lane holds
+// W / lanes rows, at most 64 float64 values (128 registers).  float64: one
+// thread up to W = 8, 8 lanes at 16, 32 at 32; complex128 halves the rows a
+// lane holds.
+template <typename T, int W>
+__host__ __device__ constexpr int segment_lanes() {
+    if (std::is_same<T, double>::value) return W <= 8 ? 1 : (W == 16 ? 8 : 32);
+    return W <= 4 ? 1 : (W == 8 ? 2 : (W == 16 ? 8 : 32));
+}
+
+// __shfl_sync within segments of S lanes (S = 1: the value itself).
+template <int S>
+__device__ __forceinline__ int seg_shfl(int v, int src) {
+    if constexpr (S == 1) return v;
+    return __shfl_sync(kFullMask, v, src, S);
+}
+template <int S>
+__device__ __forceinline__ double seg_shfl(double v, int src) {
+    if constexpr (S == 1) return v;
+    return __shfl_sync(kFullMask, v, src, S);
+}
+template <int S>
+__device__ __forceinline__ c128 seg_shfl(c128 v, int src) {
+    if constexpr (S == 1) return v;
+    return c128{__shfl_sync(kFullMask, v.re, src, S), __shfl_sync(kFullMask, v.im, src, S)};
+}
+
+template <typename T>
+__device__ __forceinline__ double pivot_mag(T a) {
+    const double v = Num<T>::mag(a);
+    return v == v ? v : -0.5;  // NaN: loses to any number, beats "no candidate"
+}
+
+// Determinant of the W x W matrix A held in registers by a segment of S
+// lanes (the lanes of ``segmask`` in their warp, segment ``seg``): a lane
+// holds rows pos[q] = sl + S q in A[q] (sl: its lane in the segment; the
+// caller sets pos, which the LU overwrites).  LU with partial pivoting, the rule of
+// temfpy_tpu/ops/linalg.py:_lu_det_body: the pivot of step k is the first
+// (in logical order) maximal |A[i, k]|, i >= k, found by a segmented
+// shuffle arg-max; rows never move (each keeps its logical position, which
+// a pivot swap exchanges), the pivot row is selected and broadcast by
+// shuffles, and the elimination is A[i, j] -= (A[i, k] / pivot) A[k, j],
+// the arithmetic of a physical-swap LU operation for operation; a zero
+// pivot gives det 0 without a division.  Every register index is a
+// constant.  Every lane of the warp calls it (segments in lockstep); A is
+// overwritten; every lane of a segment returns the determinant.
+template <typename T, int W, int S>
+__device__ __forceinline__ T segment_lu_det(T (&A)[W / S][W], int (&pos)[W / S], int seg,
+                                            unsigned segmask) {
+    constexpr int ROWS = W / S;
+    const T one = Num<T>::one();
+    T det = one;
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+        // pivot: the first (in logical order) maximal |A[i, k]|, i >= k
+        double bv = -1.0;
+        int bp = 0x7fffffff;
+#pragma unroll
+        for (int q = 0; q < ROWS; ++q) {
+            const double v = pivot_mag(A[q][k]);
+            if (pos[q] >= k && (v > bv || (v == bv && pos[q] < bp))) {
+                bv = v;
+                bp = pos[q];
+            }
+        }
+#pragma unroll
+        for (int d = S / 2; d > 0; d >>= 1) {
+            const double v2 = __shfl_xor_sync(kFullMask, bv, d, S);
+            const int p2 = __shfl_xor_sync(kFullMask, bp, d, S);
+            if (v2 > bv || (v2 == bv && p2 < bp)) {
+                bv = v2;
+                bp = p2;
+            }
+        }
+        int mine = -1;
+#pragma unroll
+        for (int q = 0; q < ROWS; ++q)
+            if (pos[q] == bp) mine = q;
+        int src = 0, h = mine;  // the pivot's lane, and its row there
+        if constexpr (S > 1) {
+            src = __ffs(__ballot_sync(kFullMask, mine >= 0) & segmask) - 1 - seg * S;
+            h = ROWS > 1 ? seg_shfl<S>(mine, src) : 0;
+        }
+        T hk = A[0][k];
+#pragma unroll
+        for (int q = 1; q < ROWS; ++q)
+            if (h == q) hk = A[q][k];
+        const T piv = seg_shfl<S>(hk, src);
+        if (bp != k) det = -det;
+        det = det * piv;
+        const T safe = Num<T>::is_zero(piv) ? one : piv;
+        T f[ROWS];
+#pragma unroll
+        for (int q = 0; q < ROWS; ++q) {
+            pos[q] = pos[q] == k ? bp : (pos[q] == bp ? k : pos[q]);
+            f[q] = A[q][k] / safe;
+        }
+#pragma unroll
+        for (int j = k + 1; j < W; ++j) {
+            T hj = A[0][j];
+#pragma unroll
+            for (int q = 1; q < ROWS; ++q)
+                if (h == q) hj = A[q][j];
+            const T pj = seg_shfl<S>(hj, src);
+#pragma unroll
+            for (int q = 0; q < ROWS; ++q)
+                if (pos[q] > k) A[q][j] = A[q][j] - f[q] * pj;
         }
     }
     return det;
@@ -210,70 +328,8 @@ __device__ __forceinline__ void rsf_block_rows(int L, int s, int right, int* lo,
     *hi = right ? L : s;
 }
 
-// A 64 x 64 float64 output tile of a product, 256 threads as 16 x 16:
-// thread (ty, tx) = (tid / 16, tid % 16) keeps the sums of tile rows
-// ty + 16 i and tile columns tx + 16 j (i, j < 4) in acc.  The depth k runs
-// over [k_begin, k_end) in steps of 16 through shared memory.  A holds the
-// tile's rows, row-major (element (r, k) at A[r * lda + k]) or depth-major
-// (at A[k * lda + r]); B is depth-major (element (k, c) at B[k * ldb + c]).
-// Rows r >= a_rows and columns c >= b_cols read as zero.  Every thread of
-// the block calls it (it synchronises); CUDA-core FMAs, no tensor cores.
-constexpr int kTile = 64;
-constexpr int kTileDepth = 16;
-constexpr int kTileThreads = 256;
-
-struct TileSmem {
-    double A[kTile][kTileDepth + 1];
-    double B[kTileDepth][kTile];
-};
-
-template <bool A_DEPTH_MAJOR>
-__device__ __forceinline__ void tile_accumulate(double (&acc)[4][4], const double* __restrict__ A,
-                                                long long lda, int a_rows,
-                                                const double* __restrict__ B, long long ldb,
-                                                int b_cols, int k_begin, int k_end,
-                                                TileSmem& s) {
-    const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-    for (int k0 = k_begin; k0 < k_end; k0 += kTileDepth) {
-        for (int e = tid; e < kTile * kTileDepth; e += kTileThreads) {
-            // consecutive threads read consecutive addresses of A
-            const int r = A_DEPTH_MAJOR ? e % kTile : e / kTileDepth;
-            const int kk = A_DEPTH_MAJOR ? e / kTile : e % kTileDepth;
-            const int k = k0 + kk;
-            double v = 0.0;
-            if (k < k_end && r < a_rows)
-                v = A_DEPTH_MAJOR ? A[(long long)k * lda + r] : A[(long long)r * lda + k];
-            s.A[r][kk] = v;
-        }
-        for (int e = tid; e < kTileDepth * kTile; e += kTileThreads) {
-            const int kk = e / kTile, c = e % kTile, k = k0 + kk;
-            s.B[kk][c] = (k < k_end && c < b_cols) ? B[(long long)k * ldb + c] : 0.0;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < kTileDepth; ++kk) {
-            double a[4], b[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) a[i] = s.A[ty + 16 * i][kk];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) b[j] = s.B[kk][tx + 16 * j];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) acc[i][j] = fma(a[i], b[j], acc[i][j]);
-        }
-        __syncthreads();
-    }
-}
-
-__device__ __forceinline__ void tile_zero(double (&acc)[4][4]) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.0;
-}
-
-// ---- FP64 tensor cores and asynchronous copies (rsf_tsprod.cu, fw_frame_slab.cu) ----
+// ---- FP64 tensor cores and asynchronous copies (rsf_apply.cu, rsf_tsprod.cu,
+// fw_frame_slab.cu; cp.async also swap_fill.cu) ----
 
 // D += A B for one 16 x 8 x 8 float64 tile on the tensor cores (mma.sync
 // DMMA; wgmma takes no float64).  Lane = 4 g + t holds (PTX ISA, "Matrix
@@ -354,8 +410,9 @@ __device__ __forceinline__ void warp_dmma_stage(double (&acc)[2 * MI][NI][2], co
 // (element (r, c) at dst[r * SLD + c]) with cp.async.  Row row0 + r starts
 // at ``row_ptr(row0 + r)``, or is not read where that is null; of its
 // columns col0 + c, those below col_end are read, except that a chunk lying
-// wholly below col_begin is not (the kernels discard those rows of the
-// product, so a chunk straddling col_begin may read both).  What is not read
+// wholly below col_begin is not: a chunk straddling col_begin reads both
+// its entries, so the caller discards the product terms below col_begin or
+// stages zeros for them on the other operand (rsf_apply).  What is not read
 // is zeroed.  VEC = 2 copies 16 bytes (every row start, col0 and the
 // leading dimension even and 16-byte aligned; a pair whose second column is
 // past col_end copies 8 and zeroes 8), VEC = 1 copies 8.  ``base`` is any

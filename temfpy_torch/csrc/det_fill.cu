@@ -31,7 +31,7 @@
 // launches.
 //
 // The design: a segment of S lanes per pair holds the W x W matrix in
-// registers, lane s rows s + S q (fill_lanes: in float64 one thread per
+// registers, lane s rows s + S q (common.cuh:segment_lanes: in float64 one thread per
 // pair up to W = 8, then 8 lanes of two rows at W = 16 and 32 lanes of one
 // at W = 32; complex128 halves the rows a lane holds).  Every loop over
 // rows, columns and LU steps is unrolled to the template width W (4, 8,
@@ -44,7 +44,8 @@
 // order wins, as in temfpy_tpu/ops/linalg.py:_lu_det_body), the pivot
 // row is selected and broadcast by shuffles, and the elimination is
 // A[i, j] -= (A[i, k] / pivot) A[k, j], the parent's arithmetic operation
-// for operation (a zero pivot gives det 0 without a division).  W = 64 is
+// for operation (a zero pivot gives det 0 without a division); the LU is
+// common.cuh:segment_lu_det, which swap_fill shares.  W = 64 is
 // a warp per pair with the matrix in shared memory (64 x 64 values would
 // fill a warp's registers) and the parent's row swaps; no main-path
 // bucket is that wide.  The site's M (m x m, padded to stride m + 1) is
@@ -59,46 +60,13 @@
 // division per row.  No allocation, no sync: the kernel runs on the
 // caller's stream.
 
-#include <type_traits>
-
 #include "common.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kFillThreads = 256;
 constexpr int kWideThreads = 64;  // W = 64: two warps, one pair each
 constexpr int kStageBytes = 48 * 1024;
-
-// Lanes of a pair's segment (kernels.det_fill_geometry mirrors it): each
-// lane holds W / lanes rows, at most 64 float64 values (128 registers).
-template <typename T, int W>
-__host__ __device__ constexpr int fill_lanes() {
-    if (std::is_same<T, double>::value) return W <= 8 ? 1 : (W == 16 ? 8 : 32);
-    return W <= 4 ? 1 : (W == 8 ? 2 : (W == 16 ? 8 : 32));
-}
-
-template <int S>
-__device__ __forceinline__ int shfl(int v, int src) {
-    if constexpr (S == 1) return v;
-    return __shfl_sync(kFull, v, src, S);
-}
-template <int S>
-__device__ __forceinline__ double shfl(double v, int src) {
-    if constexpr (S == 1) return v;
-    return __shfl_sync(kFull, v, src, S);
-}
-template <int S>
-__device__ __forceinline__ c128 shfl(c128 v, int src) {
-    if constexpr (S == 1) return v;
-    return c128{__shfl_sync(kFull, v.re, src, S), __shfl_sync(kFull, v.im, src, S)};
-}
-
-template <typename T>
-__device__ __forceinline__ double pivot_mag(T a) {
-    const double v = Num<T>::mag(a);
-    return v == v ? v : -0.5;  // NaN: loses to any number, beats "no candidate"
-}
 
 template <typename T>
 __device__ __forceinline__ void scatter(const int* tab0, const int* tab1, const int* tab2,
@@ -122,7 +90,7 @@ __global__ void __launch_bounds__(kFillThreads)
                     T* __restrict__ out, int m, int w, int R_b, int K_b, int P_b, int n0, int n1,
                     int n2, int sel, int D0p1, int D1, int D2, int pairs_per_block,
                     int stage_m) {
-    constexpr int S = fill_lanes<T, W>();  // lanes per pair
+    constexpr int S = segment_lanes<T, W>();  // lanes per pair
     constexpr int ROWS = W / S;            // rows per lane: lane s holds rows s + S q
     constexpr int PER_WARP = 32 / S;       // pairs per warp
     extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -140,7 +108,7 @@ __global__ void __launch_bounds__(kFillThreads)
     }
     const int lane = threadIdx.x & 31, seg = lane / S, sl = lane % S;
     const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-    const unsigned segmask = S == 32 ? kFull : ((1u << S) - 1u) << (seg * S);
+    const unsigned segmask = S == 32 ? kFullMask : ((1u << S) - 1u) << (seg * S);
     const int p_end = min(P_b, (blockIdx.x + 1) * pairs_per_block);
     const T da = det_always[g];
     const T one = Num<T>::one(), zero = Num<T>::zero();
@@ -166,7 +134,7 @@ __global__ void __launch_bounds__(kFillThreads)
         T A[ROWS][W];
 #pragma unroll
         for (int t = 0; t < W; ++t) {
-            const int b = shfl<S>(bcol[t / S], t % S);
+            const int b = seg_shfl<S>(bcol[t / S], t % S);
 #pragma unroll
             for (int q = 0; q < ROWS; ++q) {
                 const int a = arow[q];
@@ -181,64 +149,7 @@ __global__ void __launch_bounds__(kFillThreads)
             }
         }
 
-        T det = one;
-#pragma unroll
-        for (int k = 0; k < W; ++k) {
-            // pivot: the first (in logical order) maximal |A[i, k]|, i >= k
-            double bv = -1.0;
-            int bp = 0x7fffffff;
-#pragma unroll
-            for (int q = 0; q < ROWS; ++q) {
-                const double v = pivot_mag(A[q][k]);
-                if (pos[q] >= k && (v > bv || (v == bv && pos[q] < bp))) {
-                    bv = v;
-                    bp = pos[q];
-                }
-            }
-#pragma unroll
-            for (int d = S / 2; d > 0; d >>= 1) {
-                const double v2 = __shfl_xor_sync(kFull, bv, d, S);
-                const int p2 = __shfl_xor_sync(kFull, bp, d, S);
-                if (v2 > bv || (v2 == bv && p2 < bp)) {
-                    bv = v2;
-                    bp = p2;
-                }
-            }
-            int mine = -1;
-#pragma unroll
-            for (int q = 0; q < ROWS; ++q)
-                if (pos[q] == bp) mine = q;
-            int src = 0, h = mine;  // the pivot's lane, and its row there
-            if constexpr (S > 1) {
-                src = __ffs(__ballot_sync(kFull, mine >= 0) & segmask) - 1 - seg * S;
-                h = ROWS > 1 ? shfl<S>(mine, src) : 0;
-            }
-            T hk = A[0][k];
-#pragma unroll
-            for (int q = 1; q < ROWS; ++q)
-                if (h == q) hk = A[q][k];
-            const T piv = shfl<S>(hk, src);
-            if (bp != k) det = -det;
-            det = det * piv;
-            const T safe = Num<T>::is_zero(piv) ? one : piv;
-            T f[ROWS];
-#pragma unroll
-            for (int q = 0; q < ROWS; ++q) {
-                pos[q] = pos[q] == k ? bp : (pos[q] == bp ? k : pos[q]);
-                f[q] = A[q][k] / safe;
-            }
-#pragma unroll
-            for (int j = k + 1; j < W; ++j) {
-                T hj = A[0][j];
-#pragma unroll
-                for (int q = 1; q < ROWS; ++q)
-                    if (h == q) hj = A[q][j];
-                const T pj = shfl<S>(hj, src);
-#pragma unroll
-                for (int q = 0; q < ROWS; ++q)
-                    if (pos[q] > k) A[q][j] = A[q][j] - f[q] * pj;
-            }
-        }
+        const T det = segment_lu_det<T, W, S>(A, pos, seg, segmask);
         if (valid && sl == 0)
             scatter(tab0, tab1, tab2, slot, out, g, r, c, n0, n1, n2, sel, D0p1, D1, D2,
                     det * da);
@@ -293,8 +204,8 @@ __global__ void __launch_bounds__(kWideThreads)
                 }
             }
             for (int d = 16; d > 0; d >>= 1) {
-                const double v2 = __shfl_xor_sync(kFull, bv, d);
-                const int p2 = __shfl_xor_sync(kFull, bp, d);
+                const double v2 = __shfl_xor_sync(kFullMask, bv, d);
+                const int p2 = __shfl_xor_sync(kFullMask, bp, d);
                 if (v2 > bv || (v2 == bv && p2 < bp)) {
                     bv = v2;
                     bp = p2;

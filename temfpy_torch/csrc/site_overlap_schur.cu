@@ -245,12 +245,6 @@ __device__ __forceinline__ void warp_cand(Cand& b) {
                   __shfl_xor_sync(0xffffffffu, b.who, d));
 }
 
-template <typename T>
-__device__ __forceinline__ double pivot_mag(T a) {
-    const double v = Num<T>::mag(a);
-    return v == v ? v : -0.5;
-}
-
 __device__ __forceinline__ double shfl_val(double v, int src) {
     return __shfl_sync(0xffffffffu, v, src);
 }

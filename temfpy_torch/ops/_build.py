@@ -66,8 +66,9 @@ _SIGNATURES = {
     "tf_swap_tables": [_i] + [_vp] * 10 + [_i] * 3 + [_vp],
     # dtype, M, det_always, D0, G, P, T2, T3, Rin, Rout, Rpos, sgr, Cin, Cout,
     # Cpos, sgc, pr, pc, tab0, tab1, tab2, slot, out, U, m, w, R_b, K_b, Wr,
-    # Wc, P_b, s_b, n0, n1, n2, sel, D0p1, D1, D2, scatter, stream
-    "tf_swap_fill": [_i] + [_vp] * 22 + [_i] * 17 + [_vp],
+    # Wc, P_b, s_b, n0, n1, n2, sel, D0p1, D1, D2, scatter, pairs_per_block,
+    # threads, stage, stream
+    "tf_swap_fill": [_i] + [_vp] * 22 + [_i] * 20 + [_vp],
     # dtype, N, bra_idx, ket_idx, out, m, nb, nk, kb, kk, stream
     "tf_pf_gather": [_i] + [_vp] * 4 + [_i] * 5 + [_vp],
     # C, X, x_shared, sizes, ncol, out, m, L, n, right, mode, stream

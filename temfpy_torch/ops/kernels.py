@@ -84,6 +84,7 @@ tensors.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 
 import torch
@@ -360,12 +361,17 @@ the template width 64 (kWideThreads)."""
 _DET_FILL_BLOCKS = 4096
 """Blocks a ``det_fill`` launch aims at: a block takes more pairs (up to 32
 rounds of its segments) only while the launch has more than this many."""
-_DET_FILL_LANES = {torch.float64: {4: 1, 8: 1, 16: 8, 32: 32, 64: 32},
-                   torch.complex128: {4: 1, 8: 2, 16: 8, 32: 32, 64: 32}}
-"""Lanes of a pair's segment by dtype and template width
-(csrc/det_fill.cu:fill_lanes): each lane holds W / lanes rows in
-registers, at most 64 float64 values; at width 64 a warp holds the pair's
-matrix in shared memory."""
+
+
+def segment_lanes(W: int, dtype=torch.float64) -> int:
+    """Lanes of the segment that holds one W x W matrix in registers
+    (csrc/common.cuh:segment_lanes; each lane holds W / lanes rows, at most
+    64 float64 values): float64 one lane up to W = 8, 8 lanes at 16, 32 at
+    32; complex128 one up to 4, 2 at 8, 8 at 16, 32 at 32.  det_fill's
+    width 64 is a warp per pair with the matrix in shared memory."""
+    if dtype == torch.complex128:
+        return 1 if W <= 4 else {8: 2, 16: 8}.get(W, 32)
+    return 1 if W <= 8 else (8 if W == 16 else 32)
 
 
 def det_fill_geometry(w: int, P_b: int, G: int, dtype=torch.float64) -> dict:
@@ -376,7 +382,7 @@ def det_fill_geometry(w: int, P_b: int, G: int, dtype=torch.float64) -> dict:
     threads / lanes segments) and ``blocks_per_site``: block b of site g
     takes pairs b * pairs_per_block up to P_b."""
     W = next(x for x in (4, 8, 16, 32, 64) if w <= x)
-    lanes = _DET_FILL_LANES[dtype][W]
+    lanes = segment_lanes(W, dtype)
     threads = 64 if W == 64 else DET_FILL_THREADS
     per_round = threads // lanes
     rounds = max(1, min(32, (G * P_b) // (per_round * _DET_FILL_BLOCKS)))
@@ -951,6 +957,50 @@ swap_tables.launches = 0
 
 _SWAP_PAIR_CHUNK = 1 << 15
 """Pairs per batch in the ``swap_fill`` twin."""
+SWAP_FILL_THREADS = 256
+"""Most threads of a ``swap_fill`` block (csrc/swap_fill.cu:kSwapThreads)."""
+_SWAP_FILL_BLOCKS = 1024
+"""Blocks a ``swap_fill`` launch aims at: a block takes more pairs (up to 32
+rounds of its segments) only while the launch has more than this many, so
+that the tables it stages serve more pairs."""
+SWAP_STAGE_BYTES = 48 * 1024
+"""Shared memory a ``swap_fill`` block may stage its unit's tables in."""
+_SWAP_TABLE_READS = (4, 1, 2, 2, 4)
+"""Entries of M, G, P, T2, T3 a pair reads, per s_b^2 (D12's four-term
+differences, Gcr, K's two terms, X's two, Z's four)."""
+
+
+@functools.lru_cache(maxsize=1024)
+def swap_fill_geometry(s_b: int, P_b: int, U: int, m: int, w: int,
+                       dtype=torch.float64) -> dict:
+    """The launch shape of ``csrc/swap_fill.cu`` for swap bucket ``s_b``, P_b
+    pairs a unit, U units, sometimes width m and class width w: the
+    template width ``SB2`` (2, 4, 8, 16) of the bordered matrix, the
+    ``lanes`` of a pair's segment, the block's ``threads`` (32 to 256, as
+    its pairs need), the ``pairs_per_block`` one block takes (a whole
+    number of rounds of its threads / lanes segments), ``blocks_per_unit``,
+    and the tables staged in shared memory: ``stage`` (bit t for table t of
+    M, G, P, T2, T3) and their ``smem`` bytes.  A table is staged where the
+    block's pairs gather at least as many of its entries as it holds, while
+    the staged tables fit SWAP_STAGE_BYTES.  Cached: a conversion launches
+    a few hundred shapes ~1500 times, and the wrapper's host time sets a
+    small launch's time."""
+    SB2 = next(x for x in (2, 4, 8, 16) if 2 * s_b <= x)
+    lanes = segment_lanes(SB2, dtype)
+    threads = min(SWAP_FILL_THREADS, max(32, -(-P_b * lanes // 32) * 32))
+    per_round = threads // lanes
+    rounds = max(1, min(32, (U * P_b) // (per_round * _SWAP_FILL_BLOCKS)))
+    ppb = per_round * rounds
+    pairs = min(ppb, P_b)
+    ma = m + w
+    size = 16 if dtype == torch.complex128 else 8
+    stage = smem = 0
+    for t, (n, k) in enumerate(zip((m * m, w * w, ma * w, w * ma, ma * ma), _SWAP_TABLE_READS)):
+        if n and pairs * k * s_b * s_b >= n and smem + n * size <= SWAP_STAGE_BYTES:
+            stage |= 1 << t
+            smem += n * size
+    return {"SB2": SB2, "lanes": lanes, "threads": threads, "pairs_per_block": ppb,
+            "blocks_per_unit": -(-P_b // ppb), "stage": stage, "smem": smem}
 
 
 def swap_fill_plain(M, det_always, D0, G, P, T2, T3, Rin, Rout, Rpos, sgr, Cin, Cout, Cpos,
@@ -1006,9 +1056,9 @@ def swap_fill(M, det_always, D0, G, P, T2, T3, Rin, Rout, Rpos, sgr, Cin, Cout, 
     """Rank-update fill of U swap units (arguments and result as in
     :func:`swap_fill_plain`; on CUDA every index tensor is int32, the signs
     float64, the tables of M's dtype, s_b at most 8 and w at most 64).  CPU
-    tensors run the twin; CUDA tensors launch ``csrc/swap_fill.cu``, one
-    thread per pair, in its scatter mode (``tabs`` given) or its values
-    mode."""
+    tensors run the twin; CUDA tensors launch ``csrc/swap_fill.cu`` (a
+    segment of lanes per pair, :func:`swap_fill_geometry`) in its scatter
+    mode (``tabs`` given) or its values mode."""
     scatter = tabs is not None
     if scatter:
         if spec not in SPECS:
@@ -1072,10 +1122,12 @@ def swap_fill(M, det_always, D0, G, P, T2, T3, Rin, Rout, Rpos, sgr, Cin, Cout, 
     else:
         out = torch.empty((U, P_b), dtype=M.dtype, device=dev)
         tab_ptrs, dims = (0, 0, 0, 0), (0, 0, 0, 0, 0, 0, 0)
+    geo = swap_fill_geometry(s_b, P_b, U, m, w, M.dtype)
     with _on_device(dev):
         err = lib.tf_swap_fill(
             _DTYPE_CODE[M.dtype], *(t.data_ptr() for t in args), *tab_ptrs, out.data_ptr(), U,
-            m, w, R_b, K_b, Wr, Wc, P_b, s_b, *dims, int(scatter), _stream_ptr(dev))
+            m, w, R_b, K_b, Wr, Wc, P_b, s_b, *dims, int(scatter), geo["pairs_per_block"],
+            geo["threads"], geo["stage"], _stream_ptr(dev))
     _raise_on(err, "swap_fill")
     swap_fill.launches += 1
     return out[:, : shape[0]] if scatter else out
@@ -1214,6 +1266,34 @@ def rsf_apply_plain(mode: str, C, X, sizes, *, side: str, ncol=None):
     if ncol is not None:
         X = X * _rsf_col_mask(ncol, X.shape[-1], X.dtype)
     return m_out[:, :, None] * (C @ (m_in[:, :, None] * X))
+
+
+RSF_APPLY_TILE = 64
+"""Edge of the output tiles of ``csrc/rsf_apply.cu`` (one block each)."""
+RSF_APPLY_SMEM = 3 * (64 * 20 + 16 * 68) * 8
+"""Dynamic shared memory of an ``rsf_apply`` block (csrc/rsf_apply.cu:
+kSmem): a ring of three 16-deep stages of a 64-row C tile and a 64-column X
+tile, rows padded by 4 doubles."""
+
+
+def rsf_apply_layout(L: int, s: int, side: str, mode: str) -> dict:
+    """The rows one cut of ``csrc/rsf_apply.cu`` reads and writes, and the
+    order of its row tiles: for block size ``s``, the input range
+    ``[in_lo, in_hi)`` its depth loop covers, the output range ``[out_lo,
+    out_hi)``, and ``rows``, the first row of the tile that block z of the
+    cut's column of the grid takes (z = 0, 1, ..., counted from the cut's
+    first output tile, so its live tiles come first: ``live`` of them)."""
+    right = _rsf_right(side)
+    code = RSF_APPLY_MODES[_rsf_mode(mode, RSF_APPLY_MODES)]
+    blo, bhi = (L - s, L) if right else (0, s)
+    clo, chi = (0, blo) if right else (bhi, L)
+    in_lo, in_hi = (clo, chi) if code == 2 else (blo, bhi)
+    out_lo, out_hi = (clo, chi) if code == 1 else (blo, bhi)
+    T = RSF_APPLY_TILE
+    tiles = -(-L // T)
+    rows = [((min(out_lo, L - 1) // T + z) % tiles) * T for z in range(tiles)]
+    live = sum(a < out_hi and a + T > out_lo for a in rows) if in_lo < in_hi else 0
+    return {"in": (in_lo, in_hi), "out": (out_lo, out_hi), "rows": rows, "live": live}
 
 
 def rsf_apply(mode: str, C, X, sizes, *, side: str, ncol=None):

@@ -617,3 +617,103 @@ def test_fill_kernels_repeat_bit_for_bit(cuda):
         for wrapper in (kernels.site_overlap_schur, kernels.site_overlap_schur_gmem):
             (d1, s1), (d2, s2) = wrapper(*a, **kw), wrapper(*a, **kw)
             assert torch.equal(_bits(d1), _bits(d2)) and torch.equal(_bits(s1), _bits(s2))
+
+
+def _rsf_apply_case(seed, L, n, shared, m=8):
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(L, L))
+    sizes = [0, 1, 7, L // 2, L - 1, L, 33, L // 2 + 1][:m]
+    X = rng.normal(size=(L, n)) if shared else rng.normal(size=(len(sizes), L, n))
+    ncol = rng.integers(0, n + 2, size=len(sizes)).astype(np.int32)
+    return (A + A.T) / 2, X, np.asarray(sizes, np.int32), ncol
+
+
+@pytest.mark.parametrize("L,n", [(201, 63), (1000, 512), (1024, 64)])
+@pytest.mark.parametrize("mode", ["capp", "mtapp", "mapp"])
+@pytest.mark.parametrize("side", ["L", "R"])
+@pytest.mark.parametrize("shared", [True, False])
+def test_rsf_apply_at_every_boundary(cuda, L, n, mode, side, shared):
+    """K11a against its twin at block sizes 0, 1, odd, L/2, L - 1 and L (the
+    ranges start and end inside a 16-byte pair of its copies; L = 201 and n
+    = 63 take the 8-byte copies), L not a multiple of the 64-row tile, a
+    shared sketch with nonzero rows outside the input range and per-cut
+    blocks, with and without the live-column count: within RTOL of the
+    largest entry of |C| |X|, rows outside M_out exact zeros, two launches
+    the same bits."""
+    C, X, sizes, ncol = _rsf_apply_case(L + n + len(mode), L, n, shared)
+    c, x, sz = (torch.as_tensor(t, device=cuda) for t in (C, X, sizes))
+    for nc in (None, torch.as_tensor(ncol, device=cuda)):
+        kw = {"side": side, "ncol": nc}
+        before = kernels.rsf_apply.launches
+        got = kernels.rsf_apply(mode, c, x, sz, **kw)
+        assert kernels.rsf_apply.launches == before + 1
+        ref = kernels.rsf_apply_plain(mode, c, x, sz, **kw)
+        mag = float(kernels.rsf_apply_plain(mode, c.abs(), x.abs(), sz, **kw).max())
+        assert float((got - ref).abs().max()) <= RTOL * mag
+        for i, s in enumerate(sizes.tolist()):
+            lo, hi = kernels.rsf_apply_layout(L, s, side, mode)["out"]
+            assert not got[i, :lo].any() and not got[i, hi:].any()
+        assert torch.equal(_bits(got), _bits(kernels.rsf_apply(mode, c, x, sz, **kw)))
+
+
+def _swap_fill_cuda_case(cuda, seed, s_b, c, dtype, P, U=3, integer=False, spec="rrc",
+                         n_rows=40):
+    """Seeded swap_fill inputs on the card: the class tables from
+    swap_tables, or (``integer``) every table and M with entries in {-1, 0,
+    1}, so that the bordered matrices have exact pivot ties, zero pivots
+    and singular cases."""
+    M, r0, c0, args, kw, _rows = testing.random_swap_case(seed, U=U, m=c + 14, c=c, s_b=s_b,
+                                                          n_rows=n_rows, P=P, spec=spec,
+                                                          dtype=dtype)
+    up = lambda x: torch.as_tensor(x, device=cuda)  # noqa: E731
+    (Mm, det, Rin, Rout, Rpos, sgr, Cin, Cout, Cpos, sgc, pr, pc, tabs, _chk) = args
+    tab = kernels.swap_tables(up(M), up(r0), up(c0))[:5]
+    if integer:
+        rng = np.random.default_rng(seed)
+        Mm = rng.integers(-1, 2, size=Mm.shape).astype(Mm.dtype)
+        tab = [up(rng.integers(-1, 2, size=t.shape).astype(Mm.dtype)) for t in tab]
+    fa = [up(Mm), up(det), *tab, *(up(x) for x in (Rin, Rout, Rpos, sgr, Cin, Cout, Cpos, sgc,
+                                                    pr, pc))]
+    return fa, tuple(up(t) for t in tabs), kw
+
+
+@pytest.mark.parametrize("s_b,c", [(1, 5), (2, 6), (3, 12), (4, 12), (8, 20)])
+@pytest.mark.parametrize("dtype", ["float64", "complex128"])
+@pytest.mark.parametrize("integer", [False, True])
+def test_swap_fill_every_bucket(cuda, s_b, c, dtype, integer):
+    """K6b at every template width (s_b = 1, 2, 3, 4, 8: SB2 = 2, 4, 8, 8,
+    16), both dtypes, both modes, self-swap pads and pad pairs (1001 real
+    of P_b = 1024), then the first 1000 pairs alone (P_b not a multiple of
+    a block's pairs), and with integer tables (pivot ties, zero pivots):
+    against the twin within RTOL of the largest value, two launches the
+    same bits."""
+    fa, sc, kw = _swap_fill_cuda_case(cuda, 40 + s_b, s_b, c, dtype, 1001, integer=integer)
+    ragged = fa[:15] + [fa[15][:, :1000].contiguous(), fa[16][:, :1000].contiguous()]
+    for a in (fa, ragged):
+        got = kernels.swap_fill(*a, sc, **kw)
+        assert bool(torch.isfinite(got).all())
+        assert _rel(got, kernels.swap_fill_plain(*a, sc, **kw)) <= RTOL
+        assert torch.equal(_bits(got), _bits(kernels.swap_fill(*a, sc, **kw)))
+        v = kernels.swap_fill(*a, s_b=s_b)
+        assert _rel(v, kernels.swap_fill_plain(*a, s_b=s_b)) <= RTOL
+        assert torch.equal(_bits(v), _bits(kernels.swap_fill(*a, s_b=s_b)))
+
+
+@pytest.mark.parametrize("dtype", ["float64", "complex128"])
+@pytest.mark.parametrize("P", [32, 5000])
+def test_swap_fill_tables_past_shared_memory(cuda, dtype, P):
+    """Classes whose tables fit the 48 KB a block stages (c = 12) and whose
+    T3, or more, do not (c = 44, 60: m + w = 106, 138), with the probe's 32
+    pairs a unit and a full bucket: against the twin, the geometry staging
+    only what fits."""
+    for c in (12, 44, 60):
+        fa, sc, kw = _swap_fill_cuda_case(cuda, c + P, 4, c, dtype, P, U=4, spec="crr",
+                                          n_rows=80)
+        geo = kernels.swap_fill_geometry(4, fa[15].shape[1], 4, fa[0].shape[1], fa[3].shape[1],
+                                         fa[0].dtype)
+        assert geo["smem"] <= kernels.SWAP_STAGE_BYTES
+        if c >= 44:
+            assert not geo["stage"] >> 4 & 1  # T3 from global memory
+        assert _rel(kernels.swap_fill(*fa, sc, **kw),
+                    kernels.swap_fill_plain(*fa, sc, **kw)) <= RTOL
+        assert _rel(kernels.swap_fill(*fa, s_b=4), kernels.swap_fill_plain(*fa, s_b=4)) <= RTOL
