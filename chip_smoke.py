@@ -1,12 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (temfpy_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--parent DIR]
-
-(``--parent DIR``: a ``git archive`` of an earlier commit unpacked into
-DIR; its K1, K6b and K11a run beside this checkout's on every held call,
-timed alike and compared bit for bit, :data:`PARENT`, and K1 is timed in
-turns against it first, :func:`phase_parent_ab`.)
+    python3 chip_smoke.py
 
 Phases, each printing a line; any failure raises and exits non-zero:
 
@@ -118,7 +113,6 @@ line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 
 import contextlib
 import copy
-import importlib
 import json
 import os
 import subprocess
@@ -252,77 +246,6 @@ def check_repeatable(torch, label, fn, out):
     """Raises unless one more call of ``fn`` returns ``out`` bit for bit."""
     if not bitwise_equal(torch, fn(), out):
         raise AssertionError(f"{label}: two launches on the same input differ")
-
-
-PARENT = None
-"""The parent commit's ``temfpy_torch.ops.kernels`` (``--parent DIR``: a
-``git archive`` of that commit unpacked into DIR, its kernels built from
-its own sources), or None.  Where given, every held and timed call of the
-kernels in PARENT_KERNELS also runs through the parent's wrapper and
-kernel on the same inputs: its time on the same yardstick and whether its
-output has the same bits."""
-PARENT_KERNELS = ("det_fill", "swap_fill", "rsf_apply")
-
-
-def load_parent(path):
-    """The kernels module of the ``temfpy_torch`` package under ``path``,
-    imported as ``temfpy_torch_parent`` beside this checkout's package."""
-    import importlib.util
-
-    init = Path(path).resolve() / "temfpy_torch" / "__init__.py"
-    spec = importlib.util.spec_from_file_location("temfpy_torch_parent", init,
-                                                  submodule_search_locations=[str(init.parent)])
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[spec.name] = mod
-    spec.loader.exec_module(mod)
-    return importlib.import_module("temfpy_torch_parent.ops.kernels")
-
-
-def against_parent(torch, label, name, args, kw, out):
-    """With PARENT and ``name`` in PARENT_KERNELS: the parent's kernel on the
-    same inputs (a fill into a fresh zeroed buffer), printed as its
-    :func:`cuda_ms` time, whether its output has ``out``'s bits and the
-    largest absolute difference; returns the time (else None)."""
-    if PARENT is None or name not in PARENT_KERNELS:
-        return None
-    fn = getattr(PARENT, name)
-    fresh = (lambda: {**kw, "out": torch.zeros_like(kw["out"])}) if "out" in kw else (
-        lambda: kw)
-    ref = fn(*args, **fresh())
-    same = bitwise_equal(torch, ref, out)
-    diff = max((float((a - b).abs().max()) if a.numel() else 0.0)
-               for a, b in zip(rsf_outputs(ref), rsf_outputs(out)))
-    k = fresh()
-    t = cuda_ms(lambda: fn(*args, **k), TIMING_REPS)
-    print(f"{label}: parent {name}: {t:.3f} ms; bits {'equal' if same else 'DIFFER'} (max "
-          f"abs diff {diff:.3e})", flush=True)
-    return t
-
-
-def phase_parent_ab(torch, kernels, testing):
-    """With PARENT: K1 ``det_fill`` of this checkout (its LU shared with K6b
-    in ``common.cuh``) against the parent's, on seeded groups shaped like
-    the L=1024 conversion's largest buckets (w = 16, 8, 5; 45-60 sites of
-    32k-131k pairs), timed in turns (parent, new, new, parent, twice;
-    :func:`cuda_ms`, 10 launches each) into buffers of their own, and the
-    two outputs compared bit for bit."""
-    dev = torch.device("cuda")
-    for w, G, P_b in ((16, 45, 131072), (8, 45, 65536), (5, 60, 32768)):
-        args, kw = testing.random_det_fill_case(w, G=G, w=w, m=32, P=P_b, spec="rrc")
-        a = [torch.as_tensor(x, device=dev) for x in args[:6]]
-        a.append(tuple(torch.as_tensor(t, device=dev) for t in args[6]))
-        shape = kw["shape"]
-        bufs = {k: torch.zeros((G, shape[0] + 1) + tuple(shape[1:]), dtype=a[0].dtype,
-                               device=dev) for k in ("new", "parent")}
-        ts = {"new": [], "parent": []}
-        for who in ("parent", "new", "new", "parent") * 2:
-            fn = kernels.det_fill if who == "new" else PARENT.det_fill
-            kk = {**kw, "out": bufs[who], "slot": list(range(G))}
-            ts[who].append(cuda_ms(lambda: fn(*a, **kk), 10))
-        same = bitwise_equal(torch, bufs["new"], bufs["parent"])
-        print(f"parent A/B: det_fill w={w} G={G} P_b={P_b}: parent "
-              f"{[round(t, 4) for t in ts['parent']]} ms, new {[round(t, 4) for t in ts['new']]} "
-              f"ms; bits {'equal' if same else 'DIFFER'}", flush=True)
 
 
 def rel_err(a, b):
@@ -720,7 +643,6 @@ def phase_captured(torch, kernels, label, groups_by_name):
         kname, pname, _err, _ext, cost, library = CAPTURED[name]
         kernel, plain = getattr(kernels, kname), getattr(kernels, pname)
         ms = ms_1 = plain_ms = worst = lib_ms = bnd = flops = nbyte = 0.0
-        par_ms = None
         for key, (args, kw) in sorted(groups.items()):
             rel, ab, _held = hold(torch, kernels, label, name, key, args, kw)
             kw_t = dict(kw)
@@ -738,7 +660,6 @@ def phase_captured(torch, kernels, label, groups_by_name):
                     lambda: kernel(*args, **{**kw_t, "out": torch.zeros_like(kw_t["out"])}))
                 check_repeatable(torch, f"{label}: {name} {key}", again,
                                  tuple(t.clone() for t in rsf_outputs(out)))
-            t_par = against_parent(torch, f"{label}: {name} {key}", name, args, kw_t, out)
             t_k = cuda_ms(call, TIMING_REPS)
             _, t_p = timed(torch, lambda: plain(*args, **kw_t))
             f, b = (float(x) for x in cost(torch, args, kw, out))
@@ -753,11 +674,7 @@ def phase_captured(torch, kernels, label, groups_by_name):
             ms, ms_1, plain_ms, worst = ms + t_k, ms_1 + t_1, plain_ms + t_p, max(worst, ab)
             bnd, flops, nbyte = bnd + t_b, flops + f, nbyte + b
             lib_ms += t_l or 0.0
-            par_ms = None if t_par is None else (par_ms or 0.0) + t_par
         by = bound_ms(flops, nbyte)[1]
-        if par_ms is not None:
-            print(f"{label}: {name} on {len(groups)} main-path groups: parent kernel "
-                  f"{par_ms:.3f} ms -> kernel {ms:.3f} ms (cuda_ms, the same inputs)", flush=True)
         print(f"{label}: {name} on {len(groups)} main-path groups: kernel {ms:.3f} ms (one "
               f"call each {ms_1:.3f} ms), plain {plain_ms:.3f} ms, bound {bnd:.4f} ms ({by}; "
               f"{flops:.3e} operations, {nbyte:.3e} bytes)"
@@ -2353,13 +2270,9 @@ def phase_swap_kernels(torch, kernels, testing):
         check_repeatable(torch, f"phase 3d: swap_fill {label} scatter",
                          lambda: kernels.swap_fill(*fa, ta, **{**kw_in, "out": torch.zeros_like(
                              buf)}).flip(0), T.clone())
-        against_parent(torch, f"phase 3d: swap_fill {label} scatter", "swap_fill", (*fa, ta),
-                       kw_in, kernels.swap_fill(*fa, ta, **kw_in))
         v = kernels.swap_fill(*fa, s_b=s_b)
         check_repeatable(torch, f"phase 3d: swap_fill {label} values",
                          lambda: kernels.swap_fill(*fa, s_b=s_b), v)
-        against_parent(torch, f"phase 3d: swap_fill {label} values", "swap_fill", fa,
-                       {"s_b": s_b}, v)
         check("swap_fill", label + " values", v, kernels.swap_fill_plain(*fa, s_b=s_b),
               cuda_ms(lambda: kernels.swap_fill(*fa, s_b=s_b), 5),
               cuda_ms(lambda: kernels.swap_fill_plain(*fa, s_b=s_b), 1))
@@ -2763,10 +2676,8 @@ class RsfRecords:
     def add(self, torch, kernels, label, name, mode, args, kw):
         """One call of kernel ``name`` against its twin: fails beyond the
         tolerance, and for the redesigned ``rsf_apply`` and ``rsf_tsprod``
-        unless a second launch returns the same bits (and, with PARENT, runs
-        the parent's kernel beside: :func:`against_parent`); times kernel,
-        twin and library call
-        alike (:func:`cuda_ms`, TIMING_REPS) and the kernel's one call
+        unless a second launch returns the same bits; times kernel, twin and
+        library call alike (:func:`cuda_ms`, TIMING_REPS) and the kernel's one call
         with its wrapper's host work (:func:`timed`); returns the kernel's
         output."""
         kernel, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
@@ -2774,7 +2685,6 @@ class RsfRecords:
         out, t_1 = timed(torch, call)
         if name in ("rsf_apply", "rsf_tsprod"):
             check_repeatable(torch, f"{label}: {name} {mode}", call, out)
-        t_par = against_parent(torch, f"{label}: {name} {mode}", name, (mode, *args), kw, out)
         t_k = cuda_ms(call, TIMING_REPS)
         ref = plain(mode, *args, **kw)
         t_p = cuda_ms(lambda: plain(mode, *args, **kw), TIMING_REPS)
@@ -2793,8 +2703,6 @@ class RsfRecords:
         r["flops"] += f
         r["bytes"] += b
         r["calls"] += 1
-        if t_par is not None:
-            r["parent_ms"] = r.get("parent_ms", 0.0) + t_par
         if lib is not None:
             r["library_ms"] = (r["library_ms"] or 0.0) + lib
         return out, (rel, ab, t_k, t_1, t_p, bound_ms(f, b), lib)
@@ -2816,8 +2724,7 @@ class RsfRecords:
                   f"each {r['ms_1call']:.3f} ms), plain "
                   f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
                   f"({bound_ms(r['flops'], r['bytes'])[1]}; {r['flops']:.3e} operations, "
-                  f"{r['bytes']:.3e} bytes){lib}; max abs err {r['max_abs_err']:.3e}"
-                  + (f"; parent kernel {r['parent_ms']:.3f} ms" if "parent_ms" in r else ""),
+                  f"{r['bytes']:.3e} bytes){lib}; max abs err {r['max_abs_err']:.3e}",
                   flush=True)
 
 
@@ -2993,13 +2900,16 @@ def phase_rsf_slice(torch, np, slater, fw, kernels, profiling, spectral, ph7):
     del C
     clean = compare_frontends(np, res["raw"], ph7["exact"])
     Hd = H + np.diag(1e-3 * np.random.default_rng(3).normal(size=L))
-    # every K11a launch of this conversion metered (it is timed by no one)
+    # every K11a launch of this conversion metered
     meter = ConversionMeter(torch)
     ops = spectral._KERNEL_OPS
     apply = meter.wrap(ops[0], lambda a, k: "rsf_apply",
                        lambda a, k, o: rsf_cost("rsf_apply", a[0], a[1:], k, o))
+    t0 = time.perf_counter()
     with patched(spectral, _KERNEL_OPS=(apply, *ops[1:])):
         rsf_d = with_rsf("1", lambda: slater.H_to_MPS(Hd, {"chi_max": 512}, device="cuda"))
+    torch.cuda.synchronize()
+    t_d = time.perf_counter() - t0
     meter.report("phase 9", "disordered RSF conversion")
     stats_d = spectral.rsf_stats()
     dis = compare_frontends(np, rsf_d, ph7["exact_dis"])
@@ -3014,7 +2924,8 @@ def phase_rsf_slice(torch, np, slater, fw, kernels, profiling, spectral, ph7):
           f"this size {res['warm']:.3f} s (eigh_batch {eig_rsf:.3f} s, of it rsf/eigh "
           f"{res['prof'].seconds.get('rsf/eigh', 0.0):.3f} s), exact frontend (phase 7) "
           f"{ph7['t_exact']:.3f} s (eigh_batch {ph7['eigh_exact']:.3f} s); disordered RSF "
-          f"conversion (metered, untimed): cuts {stats_d}", flush=True)
+          f"conversion {t_d:.2f} s (metered: each K11a launch waits behind the meter's "
+          f"device sleep), cuts {stats_d}", flush=True)
     failures = []
     if stats["cuts"] != L or stats_d["cuts"] != L:
         failures.append(f"the frontend did not take every cut: {stats}, {stats_d}")
@@ -3031,17 +2942,10 @@ def phase_rsf_slice(torch, np, slater, fw, kernels, profiling, spectral, ph7):
     return res["launches"], rec
 
 
-def main(argv) -> int:
-    global PARENT
+def main() -> int:
     if not (ROOT / "temfpy_torch" / "__init__.py").is_file():
         print("chip_smoke: the temfpy_torch package is not beside this script",
               file=sys.stderr)
-        return 2
-    parent = None
-    if argv[:1] == ["--parent"] and len(argv) == 2:
-        parent = argv[1]
-    elif argv:
-        print("usage: python3 chip_smoke.py [--parent DIR]", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
     import numpy as np
@@ -3070,12 +2974,6 @@ def main(argv) -> int:
     _build.load()
     print(f"phase 2: kernels built and loaded in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.build_seconds})", flush=True)
-    if parent is not None:
-        t0 = time.perf_counter()
-        PARENT = load_parent(parent)
-        importlib.import_module("temfpy_torch_parent.ops._build").load()
-        print(f"phase 2: the parent's kernels (from {parent}) built and loaded in "
-              f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     t_start = time.perf_counter()
 
@@ -3085,8 +2983,6 @@ def main(argv) -> int:
     # the phases of the earlier slices run the direct fill on both devices
     # (the CPU's default is the rank-update path); 4e and 8 turn it on
     os.environ["TEMFPY_TORCH_DET_UPDATES"] = "0"
-    if PARENT is not None:
-        phase_parent_ab(torch, kernels, testing)
     worst = phase_kernels(torch, kernels, testing)
     elapsed("phase 3")
     worst.update(phase_pf_kernels(torch, kernels, testing))
@@ -3189,4 +3085,4 @@ def main(argv) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    sys.exit(main())

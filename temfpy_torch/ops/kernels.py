@@ -1268,34 +1268,6 @@ def rsf_apply_plain(mode: str, C, X, sizes, *, side: str, ncol=None):
     return m_out[:, :, None] * (C @ (m_in[:, :, None] * X))
 
 
-RSF_APPLY_TILE = 64
-"""Edge of the output tiles of ``csrc/rsf_apply.cu`` (one block each)."""
-RSF_APPLY_SMEM = 3 * (64 * 20 + 16 * 68) * 8
-"""Dynamic shared memory of an ``rsf_apply`` block (csrc/rsf_apply.cu:
-kSmem): a ring of three 16-deep stages of a 64-row C tile and a 64-column X
-tile, rows padded by 4 doubles."""
-
-
-def rsf_apply_layout(L: int, s: int, side: str, mode: str) -> dict:
-    """The rows one cut of ``csrc/rsf_apply.cu`` reads and writes, and the
-    order of its row tiles: for block size ``s``, the input range
-    ``[in_lo, in_hi)`` its depth loop covers, the output range ``[out_lo,
-    out_hi)``, and ``rows``, the first row of the tile that block z of the
-    cut's column of the grid takes (z = 0, 1, ..., counted from the cut's
-    first output tile, so its live tiles come first: ``live`` of them)."""
-    right = _rsf_right(side)
-    code = RSF_APPLY_MODES[_rsf_mode(mode, RSF_APPLY_MODES)]
-    blo, bhi = (L - s, L) if right else (0, s)
-    clo, chi = (0, blo) if right else (bhi, L)
-    in_lo, in_hi = (clo, chi) if code == 2 else (blo, bhi)
-    out_lo, out_hi = (clo, chi) if code == 1 else (blo, bhi)
-    T = RSF_APPLY_TILE
-    tiles = -(-L // T)
-    rows = [((min(out_lo, L - 1) // T + z) % tiles) * T for z in range(tiles)]
-    live = sum(a < out_hi and a + T > out_lo for a in rows) if in_lo < in_hi else 0
-    return {"in": (in_lo, in_hi), "out": (out_lo, out_hi), "rows": rows, "live": live}
-
-
 def rsf_apply(mode: str, C, X, sizes, *, side: str, ncol=None):
     """The masked operator product of one chunk (arguments and result as in
     :func:`rsf_apply_plain`; on CUDA ``sizes`` and ``ncol`` are int32 and

@@ -650,9 +650,10 @@ def test_rsf_apply_at_every_boundary(cuda, L, n, mode, side, shared):
         ref = kernels.rsf_apply_plain(mode, c, x, sz, **kw)
         mag = float(kernels.rsf_apply_plain(mode, c.abs(), x.abs(), sz, **kw).max())
         assert float((got - ref).abs().max()) <= RTOL * mag
-        for i, s in enumerate(sizes.tolist()):
-            lo, hi = kernels.rsf_apply_layout(L, s, side, mode)["out"]
-            assert not got[i, :lo].any() and not got[i, hi:].any()
+        for i, s in enumerate(sizes.tolist()):  # M_out: the block, or its complement
+            blk = (torch.arange(L, device=cuda) < s) if side == "L" else (
+                torch.arange(L, device=cuda) >= L - s)
+            assert not got[i][blk if mode == "mtapp" else ~blk].any()
         assert torch.equal(_bits(got), _bits(kernels.rsf_apply(mode, c, x, sz, **kw)))
 
 

@@ -1,5 +1,5 @@
-"""The launch arithmetic of K11a (``rsf_apply``) and K6b (``swap_fill``), and
-K11a's twin at the block boundaries its kernel masks, on the CPU.
+"""The launch arithmetic of K6b (``swap_fill``), and K11a's (``rsf_apply``)
+twin at the block boundaries its kernel masks, on the CPU.
 
 - ``swap_fill_geometry``: every pair of every unit taken by exactly one
   segment of one block, a lane's rows within 128 registers, 32 to 256
@@ -7,10 +7,9 @@ K11a's twin at the block boundaries its kernel masks, on the CPU.
   within the card's 227 KB), tables too large for it left in global
   memory.
 - ``segment_lanes``: the lanes of a pair's segment, as det_fill had them.
-- ``rsf_apply_layout``: every row tile of a cut written by exactly one
-  block, its live tiles first; the ring within the card's shared memory.
 - ``rsf_apply_plain`` against a numpy evaluation of the same masked
-  product (the masked rows and columns sliced out), at block sizes 0, 1,
+  product (the rows and columns outside the block masks of
+  ``temfpy_tpu/ops/spectral.py`` sliced out), at block sizes 0, 1,
   odd, L/2, L - 1 and L, so that the ranges start and end inside a
   16-byte pair of the kernel's copies: both sides, all three modes, a
   shared sketch with nonzero rows outside the input range and per-cut
@@ -101,39 +100,28 @@ def _sizes(L):
     return [0, 1, 7, L // 2, L - 1, L, 33, L // 2 + 1]
 
 
-@pytest.mark.parametrize("L", [200, 201, 1024])
-@pytest.mark.parametrize("side", ["L", "R"])
-@pytest.mark.parametrize("mode", ["capp", "mtapp", "mapp"])
-def test_rsf_apply_layout_takes_every_tile_once_live_first(L, side, mode):
-    T = kernels.RSF_APPLY_TILE
-    assert 4 * (kernels.RSF_APPLY_SMEM + 1024) <= 228 * 1024  # four blocks a SM
-    for s in _sizes(L):
-        lay = kernels.rsf_apply_layout(L, s, side, mode)
-        rows = lay["rows"]
-        assert sorted(rows) == list(range(0, L, T))
-        lo, hi = lay["out"]
-        live = [a < hi and a + T > lo for a in rows]
-        if lay["in"][0] < lay["in"][1]:
-            assert live == [True] * lay["live"] + [False] * (len(rows) - lay["live"])
-        (ilo, ihi), blk = lay["in"], (L - s, L) if side == "R" else (0, s)
-        assert (ilo, ihi) == (blk if mode != "mapp" else
-                              ((0, L - s) if side == "R" else (s, L)))
+def _in_out_rows(L, s, side, mode):
+    """The rows M_in and M_out of one cut with block size ``s``, from the
+    block mask of the JAX frontend (the first s rows on the left side, the
+    last s on the right) and its complement."""
+    blk = np.arange(L) < s if side == "L" else np.arange(L) >= L - s
+    m_in, m_out = {"capp": (blk, blk), "mtapp": (blk, ~blk), "mapp": (~blk, blk)}[mode]
+    return np.flatnonzero(m_in), np.flatnonzero(m_out)
 
 
 def _masked_numpy(mode, C, X, sizes, side, ncol):
     L = C.shape[0]
     out = np.zeros((len(sizes), L, X.shape[-1]))
     for i, s in enumerate(sizes):
-        lay = kernels.rsf_apply_layout(L, s, side, mode)
-        (ilo, ihi), (olo, ohi) = lay["in"], lay["out"]
+        rin, rout = _in_out_rows(L, s, side, mode)
         Xi = (X if X.ndim == 2 else X[i]).copy()
         if ncol is not None:
             Xi[:, ncol[i]:] = 0.0
-        out[i, olo:ohi] = C[olo:ohi, ilo:ihi] @ Xi[ilo:ihi]
+        out[i, rout] = C[np.ix_(rout, rin)] @ Xi[rin]
     return out
 
 
-@pytest.mark.parametrize("L,n", [(67, 5), (128, 64)])
+@pytest.mark.parametrize("L,n", [(67, 5), (128, 64), (200, 64), (201, 7)])
 @pytest.mark.parametrize("side", ["L", "R"])
 @pytest.mark.parametrize("mode", ["capp", "mtapp", "mapp"])
 @pytest.mark.parametrize("shared", [True, False])
@@ -153,5 +141,5 @@ def test_rsf_apply_twin_at_odd_boundaries(L, n, side, mode, shared):
         assert got.shape == ref.shape
         assert np.abs(got - ref).max() <= RTOL * mag
         for i, s in enumerate(sizes):  # rows outside M_out are exact zeros
-            olo, ohi = kernels.rsf_apply_layout(L, s, side, mode)["out"]
-            assert not got[i, :olo].any() and not got[i, ohi:].any()
+            rout = _in_out_rows(L, s, side, mode)[1]
+            assert not np.delete(got[i], rout, axis=0).any()
