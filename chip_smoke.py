@@ -101,9 +101,12 @@ launches after a warm one, on the same captured inputs; the kernel's
 one-call time with its wrapper's host work is printed beside; a library
 call takes the whole pre-gathered batch of a group, in chunks of
 LIBRARY_CHUNK_BYTES); the redesigned ``det_fill``,
-``site_overlap_schur`` (both wrappers), ``swap_fill``, ``fw_frame_slab``,
-``rsf_apply`` and ``rsf_tsprod`` must also return the same bits from two
-launches on each held input.  Untimed conversions are metered
+``site_overlap_schur`` (both wrappers), ``swap_fill``, ``det_rows``,
+``pf_fill``, ``fw_frame_slab``, ``rsf_apply`` and ``rsf_tsprod`` must also
+return the same bits from two launches on each held input.  ``det_rows``'
+record sums every group of phase 8's warm run (the probe's launches), and
+phase 6 prints the bound of every ``pf_fill`` launch of its warm run beside
+the profiled conversion's device time.  Untimed conversions are metered
 (:class:`ConversionMeter`: device time, work and bound of every launch over
 the whole conversion): every K1/K2 launch of one more exact conversion in
 phase 7, every K6b, K5 and K6a launch of one more rank-update conversion in
@@ -593,13 +596,15 @@ COMPOSITION = ("site_overlap_schur", "site_overlap_schur_gmem")
 """Kernels whose library time is a composition of several calls: printed
 and kept as ``composition_ms``, while the ``kernels`` line's
 ``library_ms`` (one call computing the same function) stays null."""
-REPEATED = ("det_fill", "site_overlap_schur", "site_overlap_schur_gmem", "swap_fill")
+REPEATED = ("det_fill", "site_overlap_schur", "site_overlap_schur_gmem", "swap_fill",
+            "det_rows")
 """Redesigned kernels whose captured groups must also return the same bits
 from a second launch (:func:`check_repeatable`)."""
 
 
-def hold(torch, kernels, label, name, key, args, kw):
-    """One main-path group of kernel ``name`` against its twin.
+def hold(torch, kernels, label, name, key, args, kw, ref=None):
+    """One main-path group of kernel ``name`` against its twin (``ref``:
+    the twin's output on these inputs where the caller has it).
 
     Where a group's sites are ill-conditioned (a near-singular always block
     makes the sometimes matrix large and its small determinants cancel),
@@ -613,6 +618,8 @@ def hold(torch, kernels, label, name, key, args, kw):
     None."""
     kname, pname, err, ext, _cost, _lib = CAPTURED[name]
     kernel, plain = getattr(kernels, kname), getattr(kernels, pname)
+    if ref is not None:
+        plain = lambda *a, **k: ref  # noqa: E731
     rel, ab = err(kernel, plain, args, kw)
     held = None
     if not rel <= KERNEL_RTOL:
@@ -628,23 +635,32 @@ def hold(torch, kernels, label, name, key, args, kw):
     return rel, ab, held
 
 
-def phase_captured(torch, kernels, label, groups_by_name):
+def phase_captured(torch, kernels, label, groups_by_name, quiet=False):
     """Phases 5b, 7 and 8: each kernel against its twin (:func:`hold`) on
     the exact inputs the main path gave it, one group per (w, spec, P_b)
     and per (kb, mb, mode), the redesigned ones (REPEATED) also launched
     twice for the same bits.  Times: the kernel and its library call by
     :func:`cuda_ms` (TIMING_REPS after a warm call, the same inputs), the
     kernel's one-call :func:`timed` figure (its wrapper's host work
-    included) printed beside, the twin one :func:`timed` call.  Returns,
-    per kernel, the worst absolute kernel-twin difference and the summed
-    kernel, twin, bound and library milliseconds over the groups."""
+    included) printed beside, the twin one :func:`timed` call (the
+    reference of the hold); ``quiet``
+    prints the sums alone.  Returns, per kernel, the worst absolute
+    kernel-twin difference, the summed kernel, twin, bound and library
+    milliseconds over the groups, and the kernel/twin error ratios of the
+    groups held against extended precision."""
     rec = {}
     for name, groups in groups_by_name.items():
         kname, pname, _err, _ext, cost, library = CAPTURED[name]
         kernel, plain = getattr(kernels, kname), getattr(kernels, pname)
         ms = ms_1 = plain_ms = worst = lib_ms = bnd = flops = nbyte = 0.0
+        ext_ratios = []
         for key, (args, kw) in sorted(groups.items()):
-            rel, ab, _held = hold(torch, kernels, label, name, key, args, kw)
+            # the twin once: its time, and the reference of the hold
+            ref, t_p = timed(torch, lambda: plain(*args, **kw))
+            rel, ab, held = hold(torch, kernels, label, name, key, args, kw, ref)
+            del ref
+            if held is not None:
+                ext_ratios.append(held[0] / max(held[1], 1e-300))
             kw_t = dict(kw)
             if kw.get("shape") is not None:
                 # the main path's fills scatter into a zeroed buffer made
@@ -661,16 +677,16 @@ def phase_captured(torch, kernels, label, groups_by_name):
                 check_repeatable(torch, f"{label}: {name} {key}", again,
                                  tuple(t.clone() for t in rsf_outputs(out)))
             t_k = cuda_ms(call, TIMING_REPS)
-            _, t_p = timed(torch, lambda: plain(*args, **kw_t))
             f, b = (float(x) for x in cost(torch, args, kw, out))
             del out
             t_b, _ = bound_ms(f, b)
             t_l = library(torch, args, kw) if library is not None else None
-            print(f"{label}: {name} {key} G={args[0].shape[0]}: rel err {rel:.3e}"
-                  + ("; repeatable" if name in REPEATED else "")
-                  + f"; kernel {t_k:.3f} ms (one call {t_1:.3f} ms), plain {t_p:.3f} ms, bound "
-                  f"{t_b:.4f} ms" + (f", library {t_l:.3f} ms" if t_l is not None else ""),
-                  flush=True)
+            if not quiet:
+                print(f"{label}: {name} {key} G={args[0].shape[0]}: rel err {rel:.3e}"
+                      + ("; repeatable" if name in REPEATED else "")
+                      + f"; kernel {t_k:.3f} ms (one call {t_1:.3f} ms), plain {t_p:.3f} ms, "
+                      f"bound {t_b:.4f} ms"
+                      + (f", library {t_l:.3f} ms" if t_l is not None else ""), flush=True)
             ms, ms_1, plain_ms, worst = ms + t_k, ms_1 + t_1, plain_ms + t_p, max(worst, ab)
             bnd, flops, nbyte = bnd + t_b, flops + f, nbyte + b
             lib_ms += t_l or 0.0
@@ -683,7 +699,7 @@ def phase_captured(torch, kernels, label, groups_by_name):
         rec[name] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
                      "bound_by": by,
                      "library_ms": lib_ms if library is not None and name not in COMPOSITION
-                     else None}
+                     else None, "ext_ratios": ext_ratios}
         if name in COMPOSITION:
             rec[name]["composition_ms"] = lib_ms
     return rec
@@ -1249,20 +1265,28 @@ PF_RECORDS = {
 
 def pf_records(torch, np, kernels, label, name, groups, active, failures):
     """The record of one BdG kernel over captured main-path groups: each
-    group against the twin (a miss is appended to ``failures``), the
-    kernel's and the twin's milliseconds, and the bound."""
+    group against the twin (a miss is appended to ``failures``; the
+    redesigned pf_fill also launched twice for the same bits), the
+    kernel's milliseconds (:func:`cuda_ms`, TIMING_REPS after a warm call;
+    the one-call :func:`timed` figure printed beside), the twin's (one
+    call), and the bound."""
     kname, pname, err, cost = PF_RECORDS[name]
     kernel, plain = getattr(kernels, kname), getattr(kernels, pname)
     ms = plain_ms = worst = bnd = flops = nbyte = 0.0
     for key, (args, kw) in sorted(groups.items()):
         rel, ab = err(torch, kernels, args, kw)
-        out, t_k = timed(torch, lambda: kernel(*args, **kw))
+        call = lambda: kernel(*args, **kw)  # noqa: E731
+        out, t_1 = timed(torch, call)
+        if name == "pf_fill":
+            check_repeatable(torch, f"{label}: {name} {key}", call, out.clone())
+        t_k = cuda_ms(call, TIMING_REPS)
         _, t_p = timed(torch, lambda: plain(*args, **kw))
         f, b = cost(torch, np, args, kw, out, active.get(key))
         t_b, _ = bound_ms(f, b)
         print(f"{label}: {name} {key} G={args[0].shape[0]}: rel err {rel:.3e} abs err "
-              f"{ab:.3e}; kernel {t_k:.3f} ms, plain {t_p:.3f} ms, bound {t_b:.4f} ms",
-              flush=True)
+              f"{ab:.3e}" + ("; repeatable" if name == "pf_fill" else "")
+              + f"; kernel {t_k:.3f} ms (one call {t_1:.3f} ms), plain {t_p:.3f} ms, bound "
+              f"{t_b:.4f} ms", flush=True)
         if not rel <= KERNEL_RTOL:
             failures.append(f"{name} {key}: rel err {rel:.3e} > {KERNEL_RTOL}")
         ms, plain_ms, worst = ms + t_k, plain_ms + t_p, max(worst, ab)
@@ -1292,6 +1316,8 @@ def phase_pf_kernels(torch, kernels, testing):
         rel, ab = pf_err(torch, kernels, a, kw)
         if not rel <= KERNEL_RTOL:
             raise AssertionError(f"pf_fill w={w} {spec}: rel err {rel:.3e} > {KERNEL_RTOL}")
+        check_repeatable(torch, f"phase 3b: pf_fill w={w} {spec}",
+                         lambda: kernels.pf_fill(*a, **kw), kernels.pf_fill(*a, **kw))
         t_k = cuda_ms(lambda: kernels.pf_fill(*a, **kw), 10)
         t_p = cuda_ms(lambda: kernels.pf_fill_plain(*a, **kw), 2)
         print(f"phase 3b: pf_fill w={w} {spec} G=4 P=60000 (P_b 65536): rel err {rel:.3e} "
@@ -1381,11 +1407,15 @@ def phase_pfaffian_full(torch, np, pfaffian, kernels, profiling, testing):
 
     overlap_rec, group_rec = bdg_recorders(pfaffian, overlaps, active, nbs)
 
+    conv = [0, 0.0, 0.0]  # pf_fill launches, operations, bytes of the warm run
+
     def fill_rec(*a, **kw):
         t = (a[4].gather(1, a[6].long()) + a[5].gather(1, a[7].long()))
         for tot, n in zip(*torch.unique(t[t > 0], return_counts=True)):
             widths[int(tot)] += int(n)
         fills.setdefault((kw["width"], kw["spec"], a[6].shape[-1]), (a, kw))
+        f, b = pf_fill_cost(torch, a, kw, None)
+        conv[:] = conv[0] + 1, conv[1] + f, conv[2] + b
         return fill(*a, **kw)
 
     pfaffian.pf_fill, pfaffian.bdg_overlap, pfaffian._overlap_group = (fill_rec, overlap_rec,
@@ -1407,6 +1437,10 @@ def phase_pfaffian_full(torch, np, pfaffian, kernels, profiling, testing):
           f"total {sum(widths.values())}", flush=True)
     print("phase 6: bdg_overlap (nb, k1_b, k2_b) -> sites:", dict(sorted(nbs.items())),
           flush=True)
+    t_b, by = bound_ms(conv[1], conv[2])
+    print(f"phase 6: warm conversion, pf_fill: {conv[0]} launches, bound {t_b:.4f} ms ({by}; "
+          f"{conv[1]:.4e} operations, {conv[2]:.4e} bytes; device time: the profiled "
+          f"conversion below)", flush=True)
 
     # each kernel against its twin on the inputs the conversion gave it
     rec = {name: pf_records(torch, np, kernels, "phase 6", name, groups, active, failures)
@@ -2229,6 +2263,8 @@ def phase_swap_kernels(torch, kernels, testing):
                                                                    dtype=dt)
                 a = [up(x) for x in (M, ib, ik, sc)]
                 got = kernels.det_rows(*a, **kw)
+                check_repeatable(torch, f"phase 3d: det_rows w={w} cross={cross} {dt}",
+                                 lambda: kernels.det_rows(*a, **kw), got)
                 t_k = cuda_ms(lambda: kernels.det_rows(*a, **kw), 5)
                 t_p = cuda_ms(lambda: kernels.det_rows_plain(*a, **kw), 1)
                 check("det_rows", f"w={w} {'cross 256x64' if cross else 'paired 16384'} {dt} "
@@ -2453,10 +2489,20 @@ def phase_swap_slice(torch, np, slater, fw, kernels, profiling, direct):
         raise AssertionError(f"phase 8: classes {stats}, pairs {pairs}")
     held, ext = Counter(), {}
     for name, key, (args, kw) in cap["every"]:
+        if name == "det_rows":  # held below, where its record is timed
+            continue
         _rel, _ab, e = hold(torch, kernels, "phase 8", name, key, args, kw)
         held[name] += 1
         if e is not None:
             ext.setdefault(name, []).append(e[0] / max(e[1], 1e-300))
+    # K5's record: every det_rows group of the warm run (the probe launches
+    # one a bucket), each held and timed as phase_captured does
+    rows = {i: g for i, (name, _key, g) in enumerate(cap["every"]) if name == "det_rows"}
+    res["rec"]["det_rows"] = phase_captured(torch, kernels, "phase 8 (every group)",
+                                            {"det_rows": rows}, quiet=True)["det_rows"]
+    held["det_rows"] = len(rows)
+    if res["rec"]["det_rows"]["ext_ratios"]:
+        ext["det_rows"] = res["rec"]["det_rows"]["ext_ratios"]
     print(f"phase 8: every rank-update group of the warm run held against its twin: "
           f"{dict(held)}; beyond {KERNEL_RTOL} relative (to the group's largest entry) and "
           f"held against extended precision: "

@@ -99,50 +99,14 @@ __device__ __forceinline__ int block_argmax_first(double v, int i) {
     return s_win;
 }
 
-// Determinant of the w x w matrix A (row stride W, w <= W) held by ONE
-// thread, by LU with partial pivoting: the first row of maximal |A[i, k]|
-// (i >= k) is the pivot, as in temfpy_tpu/ops/linalg.py:_lu_det_body; a
-// zero pivot makes the determinant 0 without dividing by it.  A is
-// overwritten.  Used by det_rows (det_fill and swap_fill keep their rows in
-// registers: segment_lu_det).
-template <typename T, int W>
-__device__ __forceinline__ T lu_det_private(T* A, int w) {
-    T det = Num<T>::one();
-    for (int k = 0; k < w; ++k) {
-        int piv_row = k;
-        double best = Num<T>::mag(A[k * W + k]);
-        for (int i = k + 1; i < w; ++i) {
-            const double v = Num<T>::mag(A[i * W + k]);
-            if (v > best) {
-                best = v;
-                piv_row = i;
-            }
-        }
-        if (piv_row != k) {
-            for (int j = k; j < w; ++j) {
-                const T tmp = A[k * W + j];
-                A[k * W + j] = A[piv_row * W + j];
-                A[piv_row * W + j] = tmp;
-            }
-            det = -det;
-        }
-        const T piv = A[k * W + k];
-        det = det * piv;
-        const T safe = Num<T>::is_zero(piv) ? Num<T>::one() : piv;
-        for (int i = k + 1; i < w; ++i) {
-            const T f = A[i * W + k] / safe;
-            for (int j = k + 1; j < w; ++j) A[i * W + j] = A[i * W + j] - f * A[k * W + j];
-        }
-    }
-    return det;
-}
-
-// ---- register-resident small LUs (det_fill.cu, swap_fill.cu) ----
+// ---- register-resident small LUs and Pfaffians (det_fill.cu, swap_fill.cu,
+// det_rows.cu, pf_fill.cu) ----
 
 constexpr unsigned kFullMask = 0xffffffffu;
 
 // Lanes of the segment that holds one W x W matrix in registers (kernels.
-// det_fill_geometry and swap_fill_geometry mirror it): each lane holds
+// det_fill_geometry, swap_fill_geometry, det_rows_geometry and
+// pf_fill_geometry mirror it): each lane holds
 // W / lanes rows, at most 64 float64 values (128 registers).  float64: one
 // thread up to W = 8, 8 lanes at 16, 32 at 32; complex128 halves the rows a
 // lane holds.
@@ -186,16 +150,20 @@ __device__ __forceinline__ double pivot_mag(T a) {
 // shuffles, and the elimination is A[i, j] -= (A[i, k] / pivot) A[k, j],
 // the arithmetic of a physical-swap LU operation for operation; a zero
 // pivot gives det 0 without a division.  Every register index is a
-// constant.  Every lane of the warp calls it (segments in lockstep); A is
-// overwritten; every lane of a segment returns the determinant.
+// constant.  Only the first ``steps`` steps run (the same number in every
+// lane of the warp): rows and columns past them must be identity padding,
+// whose steps would multiply by exact ones.  Every lane of the warp calls
+// it (segments in lockstep); A is overwritten; every lane of a segment
+// returns the determinant.
 template <typename T, int W, int S>
 __device__ __forceinline__ T segment_lu_det(T (&A)[W / S][W], int (&pos)[W / S], int seg,
-                                            unsigned segmask) {
+                                            unsigned segmask, int steps = W) {
     constexpr int ROWS = W / S;
     const T one = Num<T>::one();
     T det = one;
 #pragma unroll
     for (int k = 0; k < W; ++k) {
+        if (k >= steps) break;
         // pivot: the first (in logical order) maximal |A[i, k]|, i >= k
         double bv = -1.0;
         int bp = 0x7fffffff;
@@ -254,6 +222,181 @@ __device__ __forceinline__ T segment_lu_det(T (&A)[W / S][W], int (&pos)[W / S],
     return det;
 }
 
+// a[i] for a runtime i < N, with constant register indices
+template <int N, typename T>
+__device__ __forceinline__ T pick(const T (&a)[N], int i) {
+    T v = a[0];
+#pragma unroll
+    for (int q = 1; q < N; ++q)
+        if (i == q) v = a[q];
+    return v;
+}
+
+// Pfaffian of the W x W skew-symmetric matrix A (W even) held in registers
+// by a segment of S lanes, laid out as in segment_lu_det: lane sl of the
+// segment holds in A[q] the row whose logical position is pos[q] (sl + S q
+// at the start; the caller sets pos).  Parlett-Reid with partial pivoting,
+// the rule of temfpy_tpu/ops/pfaffian.py:_pfaffian_single: at step k (even)
+// the first (in logical order) maximal |A[j, k]|, j > k, found by a
+// segmented shuffle arg-max, is swapped into row and column k+1 (sign
+// flip), the Pfaffian is multiplied by A[k, k+1], and the trailing block
+// takes the rank-2 skew update
+//   A[i, j] += u[i] A[j, k+1] - A[i, k+1] u[j],  u[i] = A[k, i] / A[k, k+1],
+// in the products and sums of warp_parlett_reid.  Rows never move: a pivot
+// swap exchanges two logical positions, and the column half of the swap is
+// a select over constant indices inside each lane's rows.  Each lane keeps
+// ``holder``: for each logical row j, the slot S q + sl that holds it, so
+// the column entries the update needs come from their rows' lanes by
+// shuffles: A[j, k+1] as stored, and u[j] = -A[j, k] / A[k, k+1] (skew
+// symmetry: row k itself is never read), divided once, by the lane that
+// holds row j.  A zero pivot makes the Pfaffian 0 (later steps divide by 1
+// and leave it so).  Only the first ``steps`` rows, columns and steps take
+// part (even, the same in every lane of the warp): the rest must be J =
+// [[0, 1], [-1, 0]] blocks, which no step reads (a real column's pivot is a
+// real row, and a J step's is its J partner) and whose own steps would
+// multiply by exact ones.  Every lane of the warp calls it; A is
+// overwritten; every lane of a segment returns the Pfaffian.
+template <typename T, int W, int S>
+__device__ __forceinline__ T segment_parlett_reid(T (&A)[W / S][W], int (&pos)[W / S],
+                                                  int steps) {
+    constexpr int ROWS = W / S;
+    const T one = Num<T>::one();
+    int holder[W];
+#pragma unroll
+    for (int j = 0; j < W; ++j) holder[j] = j;
+    T pf = one;
+    bool zero = false;
+#pragma unroll
+    for (int k = 0; k < W; k += 2) {
+        if (k >= steps) break;
+        // pivot: the first (in logical order) maximal |A[j, k]|, j > k
+        double bv = -1.0;
+        int bp = 0x7fffffff;
+#pragma unroll
+        for (int q = 0; q < ROWS; ++q) {
+            const double v = pivot_mag(A[q][k]);
+            if (S * q < steps && pos[q] > k && (v > bv || (v == bv && pos[q] < bp))) {
+                bv = v;
+                bp = pos[q];
+            }
+        }
+#pragma unroll
+        for (int d = S / 2; d > 0; d >>= 1) {
+            const double v2 = __shfl_xor_sync(kFullMask, bv, d, S);
+            const int p2 = __shfl_xor_sync(kFullMask, bp, d, S);
+            if (v2 > bv || (v2 == bv && p2 < bp)) {
+                bv = v2;
+                bp = p2;
+            }
+        }
+        const int kp = bp;
+        if (kp != k + 1) {  // the same in every lane of the segment; kp < steps
+            int hk1 = holder[k + 1], hkp = hk1;
+#pragma unroll
+            for (int j = k + 2; j < W; ++j)
+                if (j < steps && j == kp) hkp = holder[j];
+#pragma unroll
+            for (int j = k + 2; j < W; ++j)
+                if (j < steps && j == kp) holder[j] = hk1;
+            holder[k + 1] = hkp;
+#pragma unroll
+            for (int q = 0; q < ROWS; ++q) {
+                if (S * q >= steps) break;
+                pos[q] = pos[q] == k + 1 ? kp : (pos[q] == kp ? k + 1 : pos[q]);
+                const T a1 = A[q][k + 1];
+                T ap = a1;
+#pragma unroll
+                for (int j = k + 2; j < W; ++j)
+                    if (j < steps && j == kp) ap = A[q][j];
+#pragma unroll
+                for (int j = k + 2; j < W; ++j)
+                    if (j < steps && j == kp) A[q][j] = a1;
+                A[q][k + 1] = ap;
+            }
+            if (!zero) pf = -pf;
+        }
+        // A[k, k+1] from the lane that holds row k
+        T row_k[ROWS];
+#pragma unroll
+        for (int q = 0; q < ROWS; ++q) row_k[q] = A[q][k + 1];
+        const int hk = holder[k];
+        const T akk1 = seg_shfl<S>(pick(row_k, hk / S), hk % S);
+        if (!zero) pf = pf * akk1;
+        zero = zero || Num<T>::is_zero(akk1);
+        const T safe = Num<T>::is_zero(akk1) ? one : akk1;
+        T u[ROWS], c[ROWS];  // u[i] and A[i, k+1] of the lane's rows
+#pragma unroll
+        for (int q = 0; q < ROWS; ++q) {
+            c[q] = A[q][k + 1];
+            u[q] = S * q < steps ? -A[q][k] / safe : c[q];  // rows past steps: never read
+        }
+#pragma unroll
+        for (int j = k + 2; j < W; ++j) {
+            if (j >= steps) break;
+            const int hj = holder[j];
+            const T uj = seg_shfl<S>(pick(u, hj / S), hj % S);
+            const T cj = seg_shfl<S>(pick(c, hj / S), hj % S);
+#pragma unroll
+            for (int q = 0; q < ROWS; ++q)
+                if (S * q < steps && pos[q] > k + 1) A[q][j] = A[q][j] + (u[q] * cj - c[q] * uj);
+        }
+    }
+    return pf;
+}
+
+// Determinant of the W x W matrix A (row stride LD) in shared memory,
+// computed by ONE warp (all 32 lanes call it): LU with partial pivoting, the
+// first maximal |A[i, k]|, i >= k, as the pivot (the rule of
+// temfpy_tpu/ops/linalg.py:_lu_det_body, by a warp shuffle arg-max), the
+// pivot row swapped into place, and each lane eliminating rows k+1+lane,
+// k+33+lane, ...: A[i, j] -= (A[i, k] / pivot) A[k, j], segment_lu_det's
+// arithmetic; a zero pivot gives det 0 without a division.  Only the first
+// ``steps`` steps run (identity padding past them).  A is overwritten;
+// every lane returns the determinant.  The wide (W = 64) paths of det_fill
+// and det_rows, whose matrix would take a warp's whole register file.
+template <typename T, int W, int LD>
+__device__ __forceinline__ T warp_lu_det(T* A, int lane, int steps = W) {
+    const T one = Num<T>::one();
+    T det = one;
+    for (int k = 0; k < steps; ++k) {
+        double bv = -1.0;
+        int bp = 0x7fffffff;
+        for (int i = k + lane; i < W; i += 32) {
+            const double v = pivot_mag(A[i * LD + k]);
+            if (v > bv || (v == bv && i < bp)) {
+                bv = v;
+                bp = i;
+            }
+        }
+        for (int d = 16; d > 0; d >>= 1) {
+            const double v2 = __shfl_xor_sync(kFullMask, bv, d);
+            const int p2 = __shfl_xor_sync(kFullMask, bp, d);
+            if (v2 > bv || (v2 == bv && p2 < bp)) {
+                bv = v2;
+                bp = p2;
+            }
+        }
+        if (bp != k) {
+            for (int j = k + lane; j < W; j += 32) {
+                const T tmp = A[k * LD + j];
+                A[k * LD + j] = A[bp * LD + j];
+                A[bp * LD + j] = tmp;
+            }
+            det = -det;
+            __syncwarp();
+        }
+        const T piv = A[k * LD + k];
+        det = det * piv;
+        const T safe = Num<T>::is_zero(piv) ? one : piv;
+        for (int i = k + 1 + lane; i < W; i += 32) {
+            const T f = A[i * LD + k] / safe;
+            for (int j = k + 1; j < W; ++j) A[i * LD + j] = A[i * LD + j] - f * A[k * LD + j];
+        }
+        __syncwarp();
+    }
+    return det;
+}
+
 // Pfaffian of the tot x tot skew-symmetric matrix A (row stride W, tot even,
 // tot <= W <= 32) in shared memory, computed by ONE warp (all 32 lanes call
 // it; u is a W-entry shared scratch row): Parlett-Reid with partial
@@ -263,7 +406,8 @@ __device__ __forceinline__ T segment_lu_det(T (&A)[W / S][W], int (&pos)[W / S],
 // trailing block takes the rank-2 skew update
 //   A[i, j] += u[i] A[j, k+1] - A[i, k+1] u[j],  u = A[k, :] / A[k, k+1].
 // A zero pivot makes the Pfaffian 0.  A is overwritten; every lane returns
-// the same value.  Used by pf_fill and pf_gather.
+// the same value.  Used by pf_gather and by pf_fill's pairs of 16 < tot <=
+// 32 (narrower pairs keep their rows in registers: segment_parlett_reid).
 template <typename T, int W>
 __device__ __forceinline__ T warp_parlett_reid(T* A, T* u, int tot, int lane) {
     constexpr unsigned full = 0xffffffffu;

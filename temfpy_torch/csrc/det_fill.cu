@@ -157,8 +157,8 @@ __global__ void __launch_bounds__(kFillThreads)
 }
 
 // W = 64: a warp per pair, the 64 x 64 matrix in shared memory (it would
-// take a warp's whole register file); the parent's LU with physical row
-// swaps, the rows spread over the lanes.
+// take a warp's whole register file); the LU with physical row swaps, the
+// rows spread over the lanes (common.cuh:warp_lu_det, shared with det_rows).
 template <typename T>
 __global__ void __launch_bounds__(kWideThreads)
     det_fill_wide_kernel(const T* __restrict__ M, const T* __restrict__ det_always,
@@ -192,43 +192,7 @@ __global__ void __launch_bounds__(kWideThreads)
             }
         }
         __syncwarp();
-        T det = one;
-        for (int k = 0; k < W; ++k) {
-            double bv = -1.0;
-            int bp = 0x7fffffff;
-            for (int i = k + lane; i < W; i += 32) {
-                const double v = pivot_mag(A[i * LD + k]);
-                if (v > bv || (v == bv && i < bp)) {
-                    bv = v;
-                    bp = i;
-                }
-            }
-            for (int d = 16; d > 0; d >>= 1) {
-                const double v2 = __shfl_xor_sync(kFullMask, bv, d);
-                const int p2 = __shfl_xor_sync(kFullMask, bp, d);
-                if (v2 > bv || (v2 == bv && p2 < bp)) {
-                    bv = v2;
-                    bp = p2;
-                }
-            }
-            if (bp != k) {
-                for (int j = k + lane; j < W; j += 32) {
-                    const T tmp = A[k * LD + j];
-                    A[k * LD + j] = A[bp * LD + j];
-                    A[bp * LD + j] = tmp;
-                }
-                det = -det;
-                __syncwarp();
-            }
-            const T piv = A[k * LD + k];
-            det = det * piv;
-            const T safe = Num<T>::is_zero(piv) ? one : piv;
-            for (int i = k + 1 + lane; i < W; i += 32) {
-                const T f = A[i * LD + k] / safe;
-                for (int j = k + 1; j < W; ++j) A[i * LD + j] = A[i * LD + j] - f * A[k * LD + j];
-            }
-            __syncwarp();
-        }
+        const T det = warp_lu_det<T, W, LD>(A, lane);
         if (lane == 0)
             scatter(tab0, tab1, tab2, slot, out, g, r, c, n0, n1, n2, sel, D0p1, D1, D2,
                     det * da);

@@ -58,10 +58,12 @@ _SIGNATURES = {
     # VT, flat, Cmat, out, B, L, kb, keb, fb, Wb, right, stream
     "tf_fw_frame_slab": [_vp] * 4 + [_i] * 7 + [_vp],
     # N, norm, pos_b, pos_k, cnt_b, cnt_k, pr, pc, tab0, tab1, tab2, out,
-    # G, m, width, wt, R_b, K_b, P_b, n0, n1, n2, sel, D0p1, D1, D2, stream
-    "tf_pf_fill": [_vp] * 12 + [_i] * 14 + [_vp],
-    # dtype, M, scale, idx_b, idx_k, out, G, m, w, nb, nk, cross, stream
-    "tf_det_rows": [_i] + [_vp] * 5 + [_i] * 6 + [_vp],
+    # G, m, width, wt, R_b, K_b, P_b, n0, n1, n2, sel, D0p1, D1, D2,
+    # pairs_per_block, threads, stage, stream
+    "tf_pf_fill": [_vp] * 12 + [_i] * 17 + [_vp],
+    # dtype, M, scale, idx_b, idx_k, out, G, m, w, nb, nk, cross,
+    # dets_per_block, threads, stage, stream
+    "tf_det_rows": [_i] + [_vp] * 5 + [_i] * 9 + [_vp],
     # dtype, M, r0, c0, D0, G, P, T2, T3, gmax, tmax, E, m, w, stream
     "tf_swap_tables": [_i] + [_vp] * 10 + [_i] * 3 + [_vp],
     # dtype, M, det_always, D0, G, P, T2, T3, Rin, Rout, Rpos, sgr, Cin, Cout,

@@ -717,6 +717,55 @@ fw_frame_slab.launches = 0
 # --------------------------------------------------------------------------
 
 
+PF_FILL_THREADS = 128
+"""Most threads of a ``pf_fill`` block (csrc/pf_fill.cu:kPfThreads)."""
+DET_ROWS_THREADS = 256
+"""Most threads of a ``det_rows`` block (csrc/det_rows.cu:kRowsThreads)."""
+STAGE_BYTES = 48 * 1024
+"""Shared memory a ``pf_fill`` or ``det_rows`` block may stage its site's N
+or its matrix's ket index rows in."""
+PF_WIDE_BYTES = (32 * 32 + 32) * 16 + 32 * 4
+"""Shared memory of a warp in ``pf_fill``'s tier of width 32: its matrix,
+u and index row (csrc/pf_fill.cu:kWideBytes)."""
+
+
+def small_launch_threads(units: int, lanes: int, most: int) -> int:
+    """Threads of a ``pf_fill`` or ``det_rows`` block for a launch of
+    ``units`` pairs or determinants of ``lanes`` lanes each: ``most``, or
+    64 while the launch would not give each of the card's RSF_SMS SMs a
+    block of ``most``, so that a small launch spreads over the SMs."""
+    return most if units * lanes >= RSF_SMS * most else 64
+
+
+@functools.lru_cache(maxsize=1024)
+def pf_fill_geometry(width: int, P_b: int, G: int, m: int) -> dict:
+    """The launch shape of ``csrc/pf_fill.cu`` for index-row width
+    ``width``, P_b pairs a site, G sites and N of m x m: the template width
+    ``W`` (4, 8, 16, 32), the block's ``threads``
+    (:func:`small_launch_threads`, at most PF_FILL_THREADS), the
+    ``pairs_per_block`` one block takes (32 a warp at a time, up to 32
+    rounds while the launch has more than _DET_FILL_BLOCKS blocks),
+    ``blocks_per_site`` (block b of site g takes pairs b * pairs_per_block
+    up to P_b), ``stage`` (N staged in shared memory: W <= 16, it fits
+    STAGE_BYTES at stride m + 1 and the block's pairs gather at least as
+    many entries, width^2 a pair) and the block's ``smem`` bytes (at W = 32
+    also PF_WIDE_BYTES a warp).  Each warp sorts its 32 pairs by width and
+    runs them in tiers of width 4, 8, 16 on lane segments
+    (csrc/pf_fill.cu:pf_lanes), then, at W = 32, its pairs of tot > 16 a
+    warp each in shared memory.  Cached: the wrapper's host time sets a
+    small launch's time."""
+    W = next(x for x in (4, 8, 16, 32) if width <= x)
+    threads = small_launch_threads(G * P_b, 1, PF_FILL_THREADS)
+    rounds = max(1, min(32, (G * P_b) // (threads * _DET_FILL_BLOCKS)))
+    ppb = threads * rounds
+    smem = m * (m + 1) * 16
+    stage = W <= 16 and smem <= STAGE_BYTES and min(ppb, P_b) * width * width >= m * m
+    wide = threads // 32 * PF_WIDE_BYTES if W == 32 else 0
+    return {"W": W, "threads": threads, "pairs_per_block": ppb,
+            "blocks_per_site": -(-P_b // ppb), "stage": stage,
+            "smem": (smem if stage else 0) + wide}
+
+
 def pf_fill_plain(N, norm, pos_b, pos_k, cnt_b, cnt_k, pr, pc, tabs, *, width: int,
                   spec: str, shape: tuple):
     """Plain PyTorch twin of the ``pf_fill`` kernel
@@ -791,6 +840,7 @@ def pf_fill(N, norm, pos_b, pos_k, cnt_b, cnt_k, pr, pc, tabs, *, width: int, sp
     D2 = shape[2] if len(shape) == 3 else 1
     out = torch.zeros((G, shape[0] + 1, D1, D2), dtype=N.dtype, device=dev)
     n2 = t2.shape[1] if len(shape) == 3 else 0
+    geo = pf_fill_geometry(width, pr.shape[1], G, m)
     lib = _build.load()
     with _on_device(dev):
         err = lib.tf_pf_fill(
@@ -798,7 +848,8 @@ def pf_fill(N, norm, pos_b, pos_k, cnt_b, cnt_k, pr, pc, tabs, *, width: int, sp
             cnt_b.data_ptr(), cnt_k.data_ptr(), pr.data_ptr(), pc.data_ptr(),
             t0.data_ptr(), t1.data_ptr(), t2.data_ptr(), out.data_ptr(),
             G, m, width, wt, R_b, K_b, pr.shape[1], t0.shape[1], t1.shape[1], n2,
-            SPECS[spec], shape[0] + 1, D1, D2, _stream_ptr(dev),
+            SPECS[spec], shape[0] + 1, D1, D2, geo["pairs_per_block"], geo["threads"],
+            int(geo["stage"]), _stream_ptr(dev),
         )
     _raise_on(err, "pf_fill")
     pf_fill.launches += 1
@@ -812,6 +863,38 @@ pf_fill.launches = 0
 # --------------------------------------------------------------------------
 # K5: determinants of index-row submatrices
 # --------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=1024)
+def det_rows_geometry(w: int, n: int, G: int, dtype=torch.float64, nk: int | None = None) -> dict:
+    """The launch shape of ``csrc/det_rows.cu`` for width ``w``, G matrices
+    and ``n`` index rows of idx_b each, paired (``nk`` None) or all pairs
+    with ``nk`` ket rows: the template width ``W`` (4, 8, 16, 32, 64), the
+    ``lanes`` of a determinant's segment (:func:`segment_lanes`; W = 64 a
+    warp in shared memory), the block's ``threads`` (64 at W = 64, else
+    :func:`small_launch_threads`), the ``dets_per_block`` one block takes
+    (a whole number of rounds of its segments, up to 32 while the launch
+    has more than _DET_FILL_BLOCKS blocks) and the ``grid``: paired, the
+    blocks over the flat (matrix, determinant) range, block b taking
+    determinants b * dets_per_block up to G n; all pairs, per matrix over
+    its n nk determinants.  All pairs, ``stage``: the matrix's ket index
+    rows (``smem`` bytes) are staged in shared memory where they fit
+    STAGE_BYTES and the block's determinants read each at least once.
+    Cached: the rank-update probe launches a few shapes ~500 times a
+    conversion, and the wrapper's host time sets a small launch's time."""
+    W = next(x for x in (4, 8, 16, 32, 64) if w <= x)
+    lanes = 32 if W == 64 else segment_lanes(W, dtype)
+    per_matrix = n * nk if nk is not None else n
+    total = G * per_matrix
+    threads = 64 if W == 64 else small_launch_threads(total, lanes, DET_ROWS_THREADS)
+    per_round = threads // lanes
+    rounds = max(1, min(32, total // (per_round * _DET_FILL_BLOCKS)))
+    dpb = per_round * rounds
+    smem = 4 * w * (nk or 0)
+    stage = nk is not None and W < 64 and smem <= STAGE_BYTES and min(dpb, per_matrix) >= nk
+    grid = (-(-per_matrix // dpb), G) if nk is not None else (-(-total // dpb), 1)
+    return {"W": W, "lanes": lanes, "threads": threads, "dets_per_block": dpb, "grid": grid,
+            "stage": stage, "smem": smem if stage else 0}
 
 
 def det_rows_plain(M, idx_b, idx_k, scale=None, *, cross: bool = False):
@@ -869,11 +952,13 @@ def det_rows(M, idx_b, idx_k, scale=None, *, cross: bool = False):
     if not cross and nb != nk:
         raise ValueError(f"paired index rows differ in count: {nb}, {nk}")
     out = torch.empty((G, nb, nk) if cross else (G, nb), dtype=M.dtype, device=dev)
+    geo = det_rows_geometry(w, nb, G, M.dtype, nk if cross else None)
     lib = _build.load()
     with _on_device(dev):
         err = lib.tf_det_rows(_DTYPE_CODE[M.dtype], M.data_ptr(), scale.data_ptr(),
                               idx_b.data_ptr(), idx_k.data_ptr(), out.data_ptr(), G, m, w, nb,
-                              nk, int(cross), _stream_ptr(dev))
+                              nk, int(cross), geo["dets_per_block"], geo["threads"],
+                              int(geo["stage"]), _stream_ptr(dev))
     _raise_on(err, "det_rows")
     det_rows.launches += 1
     return out

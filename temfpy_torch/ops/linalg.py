@@ -249,7 +249,7 @@ def batched_det_pairs(M: torch.Tensor, row_idx, col_idx, chunk: int | None = Non
     Index rows share a width k; a slot ``s`` holding the sentinel
     ``M.shape[0] + s`` addresses the identity extension ``M_aug =
     block_diag(M, I_k)``, so an all-sentinel row gives 1.  On a CUDA tensor
-    ``M`` this launches the ``det_rows`` kernel (one thread per
+    ``M`` this launches the ``det_rows`` kernel (a lane segment per
     determinant, k <= 64), on a CPU tensor its twin; ``chunk`` bounds the
     pairs per launch.  Returns (P,) values on M's device."""
     from .kernels import det_rows

@@ -331,14 +331,17 @@ def pip_hamiltonian(W: int, Lx: int, t: float = 1.0, delta: float = 0.5, mu: flo
 
 
 def random_pf_fill_case(seed: int, *, G: int, w: int, m: int, P: int, spec: str = "rrc",
-                        n_rows: int = 256):
+                        n_rows: int = 256, zero_every: int = 0):
     """Seeded inputs of :func:`temfpy_torch.ops.kernels.pf_fill` shaped like
     one fill group of the Pfaffian path: ``G`` sites, antisymmetric complex
     N (m, m), ``n_rows`` bra and ket bond rows with up to w/2 excitations
     each (ket positions in [0, m/2), bra positions in [m/2, m); the last
     row of each table a count-0 pad row), ``P`` distinct parity-matching
     pairs padded to a power of two >= 256, and injective scatter tables of
-    layout ``spec``.  Returns (args, kwargs) as numpy."""
+    layout ``spec``.  ``zero_every`` > 0 zeroes N's row and column at every
+    zero_every-th bra position: a pair holding one has Pfaffian 0, reached
+    by a zero pivot after the steps of the ket positions before it.
+    Returns (args, kwargs) as numpy."""
     rng = np.random.default_rng(seed)
     R = K = n_rows
     half = w // 2
@@ -381,6 +384,10 @@ def random_pf_fill_case(seed: int, *, G: int, w: int, m: int, P: int, spec: str 
         raise ValueError(spec)
     A = rng.normal(size=(G, m, m)) + 1j * rng.normal(size=(G, m, m))
     N = (A - A.transpose(0, 2, 1)) * (0.5 / m**0.5)
+    if zero_every:
+        z = np.arange(m // 2, m, zero_every)
+        N[:, z, :] = 0
+        N[:, :, z] = 0
     norm = 0.5 + rng.random(G)
     stack = lambda a: np.stack([a] * G)  # noqa: E731
     args = (N, norm, stack(pos_b), stack(pos_k), stack(cnt_b), stack(cnt_k), stack(pr),

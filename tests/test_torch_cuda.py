@@ -718,3 +718,143 @@ def test_swap_fill_tables_past_shared_memory(cuda, dtype, P):
         assert _rel(kernels.swap_fill(*fa, sc, **kw),
                     kernels.swap_fill_plain(*fa, sc, **kw)) <= RTOL
         assert _rel(kernels.swap_fill(*fa, s_b=4), kernels.swap_fill_plain(*fa, s_b=4)) <= RTOL
+
+
+# K5 det_rows and K3 pf_fill on lane segments (registers; W = 64 det_rows a
+# warp in shared memory)
+
+
+def _det_rows_cuda_case(cuda, seed, w, cross, dtype="float64", G=3, n=300, nk=40, m=None,
+                        integer=False):
+    (M, ib, ik, sc), kw = testing.random_det_rows_case(seed, G=G, w=w, m=m or max(w, 20), n=n,
+                                                       nk=nk, cross=cross, dtype=dtype)
+    if integer:
+        M = np.round(2 * M * max(w, 20) ** 0.5)
+    return [torch.as_tensor(x, device=cuda) for x in (M, ib, ik, sc)], kw
+
+
+@pytest.mark.parametrize("w", [0, 1, 3, 4, 5, 8, 9, 15, 16, 17, 24, 31, 32, 33, 64])
+@pytest.mark.parametrize("cross", [False, True])
+@pytest.mark.parametrize("dtype", ["float64", "complex128"])
+def test_det_rows_every_template_width(cuda, w, cross, dtype):
+    """Each width pads to its template width (4, 8, 16, 32; 64 in shared
+    memory) with identity rows and columns: against the twin within RTOL,
+    and two launches the same bits (all pairs: ket rows staged, 40 of
+    them)."""
+    a, kw = _det_rows_cuda_case(cuda, 300 + w, w, cross, dtype)
+    got = kernels.det_rows(*a, **kw)
+    assert _rel(got, kernels.det_rows_plain(*a, **kw)) <= RTOL
+    assert torch.equal(_bits(got), _bits(kernels.det_rows(*a, **kw)))
+
+
+@pytest.mark.parametrize("w", [3, 8, 13, 16, 24, 32, 40])
+@pytest.mark.parametrize("dtype", ["float64", "complex128"])
+def test_det_rows_pivot_ties_and_zero_pivots(cuda, w, dtype):
+    """M with small integer entries: exact ties in the pivot search (the
+    first maximal row wins), zero pivots and singular submatrices (det 0
+    without a division), paired and all pairs."""
+    for cross in (False, True):
+        a, kw = _det_rows_cuda_case(cuda, 9 * w, w, cross, dtype, integer=True)
+        got, ref = kernels.det_rows(*a, **kw), kernels.det_rows_plain(*a, **kw)
+        assert bool(torch.isfinite(got).all()) and _rel(got, ref) <= RTOL
+
+
+@pytest.mark.parametrize("w", [2, 5, 8, 12, 16, 24, 32, 64])
+def test_det_rows_float64_follows_the_lu_rule(cuda, w):
+    """float64, M a signed permutation matrix: every pivot is 0 or +-1, so
+    each LU operation is exact and the kernel must give the twin's values
+    (0, +-1 times the scale) bit for bit: the same pivot rule and signs."""
+    rng = np.random.default_rng(w)
+    m = max(w, 20)
+    G = 3
+    M = np.zeros((G, m, m))
+    for g in range(G):
+        M[g, np.arange(m), rng.permutation(m)] = rng.choice([-1.0, 1.0], m)
+    (_M, ib, ik, sc), kw = testing.random_det_rows_case(w, G=G, w=w, m=m, n=500)
+    a = [torch.as_tensor(x, device=cuda) for x in (M, ib, ik, sc)]
+    got = kernels.det_rows(*a, **kw)
+    assert torch.equal(got, kernels.det_rows_plain(*a, **kw))
+    assert torch.equal(_bits(got), _bits(kernels.det_rows(*a, **kw)))
+
+
+@pytest.mark.parametrize("w", [4, 6, 12, 20, 24])
+@pytest.mark.parametrize("dtype", ["float64", "complex128"])
+def test_det_rows_probe_shaped_launch(cuda, w, dtype):
+    """The rank-update probe's launch: G units of 32 pairs each, one launch
+    over the flat (unit, pair) range; and a group of all-sentinel rows,
+    whose determinants are the scales."""
+    for G in (1, 7, 150):
+        a, kw = _det_rows_cuda_case(cuda, w + G, w, False, dtype, G=G, n=32, m=w + 14)
+        geo = kernels.det_rows_geometry(w, 32, G, a[0].dtype)
+        assert geo["grid"] == (-(-G * 32 // geo["dets_per_block"]), 1)
+        before = kernels.det_rows.launches
+        got = kernels.det_rows(*a, **kw)
+        assert kernels.det_rows.launches == before + 1
+        assert _rel(got, kernels.det_rows_plain(*a, **kw)) <= RTOL
+    M, _ib, _ik, sc = a
+    m = M.shape[-1]
+    pad = (m + torch.arange(w, device=cuda, dtype=torch.int32)).expand(M.shape[0], 32, w)
+    pad = pad.contiguous()
+    ones = kernels.det_rows(M, pad, pad, sc)
+    assert torch.equal(ones, sc[:, None].expand_as(ones))
+
+
+def _pf_fill_cuda_case(cuda, seed, w, spec="rrc", P=3000, G=3, zero_every=0, integer=False):
+    args, kw = testing.random_pf_fill_case(seed, G=G, w=w, m=max(2 * w, 24), P=P, spec=spec,
+                                           n_rows=128, zero_every=zero_every)
+    N = args[0]
+    if integer:  # small integers, still antisymmetric
+        N = np.round(N * N.shape[-1] ** 0.5)
+        N = N - np.swapaxes(N, -1, -2)
+    a = [torch.as_tensor(x, device=cuda) for x in (N, *args[1:8])]
+    a.append(tuple(torch.as_tensor(t, device=cuda) for t in args[8]))
+    return a, kw
+
+
+@pytest.mark.parametrize("w", [2, 4, 6, 8, 10, 12, 16, 20, 24, 32])
+@pytest.mark.parametrize("spec", ["rc", "crr"])
+def test_pf_fill_every_template_width(cuda, w, spec):
+    """Each width pads to its template width (4, 8, 16, 32) with J blocks;
+    pad pairs (3000 real of 4096) reach the trash row: against the twin
+    within RTOL, and two launches the same bits."""
+    a, kw = _pf_fill_cuda_case(cuda, 500 + w, w, spec)
+    got = kernels.pf_fill(*a, **kw)
+    assert _rel(got, kernels.pf_fill_plain(*a, **kw)) <= RTOL
+    assert torch.equal(_bits(got), _bits(kernels.pf_fill(*a, **kw)))
+
+
+@pytest.mark.parametrize("w", [4, 8, 12, 16, 32])
+def test_pf_fill_pivot_ties_and_zero_pivots_midway(cuda, w):
+    """N with small integer entries (exact ties: the first maximal row
+    wins), and N with zero rows at some bra positions: a pair holding one
+    meets a zero pivot after its ket steps and its Pfaffian is exactly 0,
+    where the twin's is."""
+    a, kw = _pf_fill_cuda_case(cuda, 60 + w, w, "rrc", integer=True)
+    got, ref = kernels.pf_fill(*a, **kw), kernels.pf_fill_plain(*a, **kw)
+    assert bool(torch.isfinite(got).all()) and _rel(got, ref) <= RTOL
+    a, kw = _pf_fill_cuda_case(cuda, 70 + w, w, "rrc", zero_every=3)
+    got, ref = kernels.pf_fill(*a, **kw), kernels.pf_fill_plain(*a, **kw)
+    assert _rel(got, ref) <= RTOL
+    assert torch.equal(got == 0, ref == 0)
+    a0, _ = _pf_fill_cuda_case(cuda, 70 + w, w, "rrc")
+    assert (ref == 0).sum() > (kernels.pf_fill_plain(*a0, **kw) == 0).sum()
+
+
+@pytest.mark.parametrize("w", [4, 16, 32])
+def test_pf_fill_all_pad_group(cuda, w):
+    """A group whose pairs are all pad pairs writes only the trash rows: the
+    sliced buffer stays zero.  A pair the kernel was not planned for (a
+    count past the tables' width) reads NaN."""
+    a, kw = _pf_fill_cuda_case(cuda, 5, w, P=300)
+    pad_r, pad_c = a[2].shape[1] - 1, a[3].shape[1] - 1
+    pads = list(a)
+    pads[6] = torch.full_like(a[6], pad_r)
+    pads[7] = torch.full_like(a[7], pad_c)
+    assert not bool(kernels.pf_fill(*pads, **kw).any())
+    wide = list(a)  # bra row 0 holds more excitations than the tables' width
+    wide[4] = a[4].clone()
+    wide[4][:, 0] = w + 2
+    wide[6] = a[6].clone()
+    wide[6][:, 0] = 0
+    got = kernels.pf_fill(*wide, **kw)
+    assert bool(torch.isnan(got).any())
