@@ -35,8 +35,9 @@ Phases, each printing a line; any failure raises and exits non-zero:
 3c. large-L kernels: ``fw_frame_slab`` at L=1024 (B=64, Wb=512, both sides,
    every kind of pad, a short last slab; beside ``torch.bmm``, and a second
    launch that must return the same bits), ``site_overlap_schur_gmem``
-   (mb = 192, 320 in float64, 128 in complex128) and ``bdg_overlap_gmem``
-   (nb = 96, 128) against their twins on seeded inputs;
+   (mb = 192, 320 in float64, 128 in complex128) and ``bdg_overlap`` past
+   nb = 64 (nb = 96, 128 in clusters, 272 in the global-memory elimination)
+   against their twins on seeded inputs;
 3d. rank-update and index-row kernels: ``det_rows`` (w = 4-64, paired and
    all pairs), ``swap_tables`` (w_b = 8, 16, 24), ``swap_fill`` (s_b = 1,
    2, 4, 8, both modes, the three scatter layouts into slots of one
@@ -102,15 +103,20 @@ one-call time with its wrapper's host work is printed beside; a library
 call takes the whole pre-gathered batch of a group, in chunks of
 LIBRARY_CHUNK_BYTES); the redesigned ``det_fill``,
 ``site_overlap_schur`` (both wrappers), ``swap_fill``, ``det_rows``,
-``pf_fill``, ``fw_frame_slab``, ``rsf_apply`` and ``rsf_tsprod`` must also
-return the same bits from two launches on each held input.  ``det_rows``'
+``pf_fill``, ``bdg_overlap``, ``fw_frame_slab``, ``rsf_apply``,
+``rsf_tsprod`` and ``rsf_ritz_select`` must also return the same bits from
+two launches on each held input (``rsf_ritz_select`` works in place: each of
+its launches gets a clone of the operand it updates).  ``det_rows``'
 record sums every group of phase 8's warm run (the probe's launches), and
 phase 6 prints the bound of every ``pf_fill`` launch of its warm run beside
 the profiled conversion's device time.  Untimed conversions are metered
 (:class:`ConversionMeter`: device time, work and bound of every launch over
 the whole conversion): every K1/K2 launch of one more exact conversion in
 phase 7, every K6b, K5 and K6a launch of one more rank-update conversion in
-phase 8, every K11a launch of phase 9's disordered conversion.  The last
+phase 8, every K4 launch of phase 6's warm conversion, every K11a and K11c
+launch of phase 9's disordered conversion.  ``bdg_overlap`` has two
+records: ``bdg_overlap`` (phase 6) and ``bdg_overlap_wide`` (its sites past
+nb = 64, phase 4d; both records count the one wrapper's launches).  The last
 line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
@@ -1157,7 +1163,8 @@ def device_profile(torch, run, label):
         print(f"  {us / 1e3:10.2f} ms  x{count:<6d} {key[:90]}", flush=True)
     for kernel in ("det_fill_kernel", "site_overlap_kernel", "site_schur_kernel",
                    "fw_frame_slab_kernel", "pf_fill_kernel",
-                   "bdg_overlap_kernel", "bdg_overlap_gmem_kernel", "swap_tables_kernel",
+                   "bdg_products_kernel", "bdg_eliminate_kernel", "bdg_eliminate_gmem_kernel",
+                   "swap_tables_kernel",
                    "swap_fill_kernel", "det_rows_kernel", "rsf_apply_kernel",
                    "rsf_gram_kernel", "rsf_combine_kernel", "rsf_ritz_shift_kernel",
                    "rsf_ritz_select_kernel", "rsf_frames_stats_kernel",
@@ -1201,14 +1208,45 @@ def bdg_overlap_cost(np, args, out, k1, k2):
     counts (not their buckets), complex multiply-adds for the blocks U*
     (nb^2 2nb), Vr[j1, nb:] and Vr[nb:, j2] ((k1 + k2) nb 2nb), an LU of U*
     (nb^3 / 3) with the k1 column and k2 row solves of U*^-1 that AA, BA
-    and BB read ((k1 + k2) nb^2), and the off-diagonal entries of AA and BB
-    (k (k - 1) nb each; the kernel computes each twice).  Inputs and
-    outputs once."""
+    and BB read ((k1 + k2) nb^2), and the off-diagonal entries of P U*^-1
+    and U*^-1 Q that AA and BB antisymmetrise (k (k - 1) nb: each entry
+    once).  Inputs and outputs once."""
     nb = args[0].shape[-1]
     k1, k2 = np.asarray(k1, float), np.asarray(k2, float)
     cma = (2 * nb**3 + (k1 + k2) * 2 * nb * nb + nb**3 / 3 + (k1 + k2) * nb * nb
            + (k1 * (k1 - 1) + k2 * (k2 - 1)) * nb)
     return float(cma.sum()) * CMA_FLOP, nbytes(*args, *out)
+
+
+def bdg_library_ms(torch, kernels, args):
+    """Milliseconds (:func:`cuda_ms`, TIMING_REPS) of a library composition
+    of bdg_overlap's function on one group, for reference (no single call
+    computes it): ``torch.bmm`` for Vr = V1^H V2 of the full Nambu frames
+    (built before the timing), ``torch.linalg.lu_factor`` and ``lu_solve``
+    for U*^-1 with |det U*| from the LU's diagonal, the gathers and two
+    ``torch.bmm`` for AA and BB, the antisymmetrisation and the norm."""
+    V1h, V2h, j1, j2, thresh = args
+    V1, V2 = kernels.nambu_full(V1h), kernels.nambu_full(V2h)
+    G, nb, k1, k2 = V1h.shape[0], V1h.shape[2], j1.shape[1], j2.shape[1]
+    j1, j2 = j1.long(), j2.long()
+    eye = torch.eye(nb, dtype=V1.dtype, device=V1.device).expand(G, nb, nb)
+
+    def run():
+        Vr = torch.bmm(V1.mH, V2)
+        LU, piv = torch.linalg.lu_factor(Vr[:, nb:, nb:])
+        Ui = torch.linalg.lu_solve(LU, piv, eye)
+        absdet = LU.diagonal(dim1=1, dim2=2).abs().prod(1)
+        norm = torch.where(~torch.isfinite(absdet) | (absdet < thresh),
+                           torch.full_like(absdet, float("nan")), absdet.sqrt())
+        AA = torch.bmm(torch.gather(Vr[:, :, nb:], 1, j1[:, :, None].expand(-1, -1, nb)),
+                       torch.gather(Ui, 2, j1[:, None, :].expand(-1, nb, -1)))
+        Uj2 = torch.gather(Ui, 1, j2[:, :, None].expand(-1, -1, nb))
+        BA = torch.gather(Uj2, 2, j1[:, None, :].expand(-1, k2, -1))
+        BB = torch.bmm(Uj2, torch.gather(Vr[:, nb:, :], 2, j2[:, None, :].expand(-1, nb, -1)))
+        AA, BB = (AA - AA.mT) / 2, (BB - BB.mT) / 2
+        return torch.cat([torch.cat([BB, BA], 2), torch.cat([-BA.mT, AA], 2)], 1), norm
+
+    return cuda_ms(run, TIMING_REPS)
 
 
 def pf_err(torch, kernels, args, kw):
@@ -1227,21 +1265,23 @@ def bdg_err(torch, kernels, args, kw):
     return max(rel_N, rel_n), max(ab_N, ab_n)
 
 
-def bdg_recorders(pfaffian, overlaps, active, nbs):
+def bdg_recorders(pfaffian, overlaps, active, nbs, current=None):
     """Wrappers of ``pfaffian.bdg_overlap`` and ``pfaffian._overlap_group``
     that keep the inputs of the first group per (nb, k1_b, k2_b) in
     ``overlaps``, count its sites in ``nbs`` and each site's real active
-    counts k1, k2 in ``active``; they call the wrapped functions."""
+    counts k1, k2 in ``active`` (and those of the group being launched in
+    ``current[0]``, for a meter's cost); they call the wrapped functions."""
     overlap, group = pfaffian.bdg_overlap, pfaffian._overlap_group
 
     def group_rec(plans, device):
         # each site's real active counts, from its N-slot sets
         # [ket (k2_b) | bra (k1_b)] (every real slot is used by some set)
         k2_b = len(plans[0]["j2"])
-        active.setdefault(
-            (plans[0]["frames"][0].shape[-1], len(plans[0]["j1"]), k2_b),
-            ([int(p["fields"]["sets_bra"][:, k2_b:].any(0).sum()) for p in plans],
-             [int(p["fields"]["sets_ket"][:, :k2_b].any(0).sum()) for p in plans]))
+        counts = ([int(p["fields"]["sets_bra"][:, k2_b:].any(0).sum()) for p in plans],
+                  [int(p["fields"]["sets_ket"][:, :k2_b].any(0).sum()) for p in plans])
+        active.setdefault((plans[0]["frames"][0].shape[-1], len(plans[0]["j1"]), k2_b), counts)
+        if current is not None:
+            current[:] = [counts]
         return group(plans, device)
 
     def overlap_rec(*a):
@@ -1258,45 +1298,52 @@ PF_RECORDS = {
                 lambda torch, np, a, kw, out, act: pf_fill_cost(torch, a, kw, out)),
     "bdg_overlap": ("bdg_overlap", "bdg_overlap_plain", bdg_err,
                     lambda torch, np, a, kw, out, act: bdg_overlap_cost(np, a, out, *act)),
-    "bdg_overlap_gmem": ("bdg_overlap_gmem", "bdg_overlap_plain", bdg_err,
+    "bdg_overlap_wide": ("bdg_overlap", "bdg_overlap_plain", bdg_err,
                          lambda torch, np, a, kw, out, act: bdg_overlap_cost(np, a, out, *act)),
 }
 
 
 def pf_records(torch, np, kernels, label, name, groups, active, failures):
     """The record of one BdG kernel over captured main-path groups: each
-    group against the twin (a miss is appended to ``failures``; the
-    redesigned pf_fill also launched twice for the same bits), the
-    kernel's milliseconds (:func:`cuda_ms`, TIMING_REPS after a warm call;
-    the one-call :func:`timed` figure printed beside), the twin's (one
-    call), and the bound."""
+    group against the twin (a miss is appended to ``failures``) and
+    launched twice for the same bits, the kernel's milliseconds
+    (:func:`cuda_ms`, TIMING_REPS after a warm call; the one-call
+    :func:`timed` figure printed beside), the twin's (one call), the bound,
+    and for bdg_overlap the library composition of :func:`bdg_library_ms`
+    (``composition_ms``; no single call computes the function)."""
     kname, pname, err, cost = PF_RECORDS[name]
     kernel, plain = getattr(kernels, kname), getattr(kernels, pname)
-    ms = plain_ms = worst = bnd = flops = nbyte = 0.0
+    ms = plain_ms = worst = bnd = flops = nbyte = comp = 0.0
     for key, (args, kw) in sorted(groups.items()):
         rel, ab = err(torch, kernels, args, kw)
         call = lambda: kernel(*args, **kw)  # noqa: E731
         out, t_1 = timed(torch, call)
-        if name == "pf_fill":
-            check_repeatable(torch, f"{label}: {name} {key}", call, out.clone())
+        check_repeatable(torch, f"{label}: {name} {key}", call,
+                         tuple(t.clone() for t in rsf_outputs(out)))
         t_k = cuda_ms(call, TIMING_REPS)
         _, t_p = timed(torch, lambda: plain(*args, **kw))
         f, b = cost(torch, np, args, kw, out, active.get(key))
         t_b, _ = bound_ms(f, b)
+        t_c = bdg_library_ms(torch, kernels, args) if kname == "bdg_overlap" else None
         print(f"{label}: {name} {key} G={args[0].shape[0]}: rel err {rel:.3e} abs err "
-              f"{ab:.3e}" + ("; repeatable" if name == "pf_fill" else "")
-              + f"; kernel {t_k:.3f} ms (one call {t_1:.3f} ms), plain {t_p:.3f} ms, bound "
-              f"{t_b:.4f} ms", flush=True)
+              f"{ab:.3e}; repeatable; kernel {t_k:.3f} ms (one call {t_1:.3f} ms), plain "
+              f"{t_p:.3f} ms, bound {t_b:.4f} ms"
+              + (f", library composition {t_c:.3f} ms" if t_c is not None else ""), flush=True)
         if not rel <= KERNEL_RTOL:
             failures.append(f"{name} {key}: rel err {rel:.3e} > {KERNEL_RTOL}")
         ms, plain_ms, worst = ms + t_k, plain_ms + t_p, max(worst, ab)
-        bnd, flops, nbyte = bnd + t_b, flops + f, nbyte + b
+        bnd, flops, nbyte, comp = bnd + t_b, flops + f, nbyte + b, comp + (t_c or 0.0)
     by = bound_ms(flops, nbyte)[1]
     print(f"{label}: {name} on {len(groups)} main-path groups: kernel {ms:.3f} ms, plain "
           f"{plain_ms:.3f} ms, bound {bnd:.4f} ms ({by}; {flops:.3e} operations, "
-          f"{nbyte:.3e} bytes)", flush=True)
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
-            "bound_by": by, "library_ms": None}
+          f"{nbyte:.3e} bytes)"
+          + (f", library composition {comp:.3f} ms" if kname == "bdg_overlap" else ""),
+          flush=True)
+    rec = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
+           "bound_by": by, "library_ms": None}
+    if kname == "bdg_overlap":
+        rec["composition_ms"] = comp
+    return rec
 
 
 def phase_pf_kernels(torch, kernels, testing):
@@ -1333,10 +1380,12 @@ def phase_pf_kernels(torch, kernels, testing):
             if not rel <= KERNEL_RTOL:
                 raise AssertionError(f"bdg_overlap nb={nb} {mode}: rel err {rel:.3e} > "
                                      f"{KERNEL_RTOL}")
+            check_repeatable(torch, f"phase 3b: bdg_overlap nb={nb} {mode}",
+                             lambda: kernels.bdg_overlap(*a), kernels.bdg_overlap(*a))
             t_k = cuda_ms(lambda: kernels.bdg_overlap(*a), 10)
             t_p = cuda_ms(lambda: kernels.bdg_overlap_plain(*a), 2)
             print(f"phase 3b: bdg_overlap nb={nb} k1={k1} k2={k2} x={x} {mode} G=64: rel err "
-                  f"{rel:.3e}; kernel {t_k:.3f} ms, plain {t_p:.3f} ms", flush=True)
+                  f"{rel:.3e}, repeatable; kernel {t_k:.3f} ms, plain {t_p:.3f} ms", flush=True)
             worst["bdg_overlap"] = max(worst["bdg_overlap"], ab)
     return worst
 
@@ -1404,8 +1453,12 @@ def phase_pfaffian_full(torch, np, pfaffian, kernels, profiling, testing):
     widths, nbs = Counter(), Counter()
     fills, overlaps, active = {}, {}, {}
     fill, overlap, group = pfaffian.pf_fill, pfaffian.bdg_overlap, pfaffian._overlap_group
-
-    overlap_rec, group_rec = bdg_recorders(pfaffian, overlaps, active, nbs)
+    # every bdg_overlap launch of the warm run metered, each at its group's
+    # real active counts
+    meter, current = ConversionMeter(torch), [None]
+    pfaffian.bdg_overlap = meter.wrap(overlap, lambda a, k: "bdg_overlap",
+                                      lambda a, k, o: bdg_overlap_cost(np, a, o, *current[0]))
+    overlap_rec, group_rec = bdg_recorders(pfaffian, overlaps, active, nbs, current)
 
     conv = [0, 0.0, 0.0]  # pf_fill launches, operations, bytes of the warm run
 
@@ -1430,8 +1483,10 @@ def phase_pfaffian_full(torch, np, pfaffian, kernels, profiling, testing):
     finally:
         pfaffian.pf_fill, pfaffian.bdg_overlap, pfaffian._overlap_group = fill, overlap, group
     peak = torch.cuda.max_memory_allocated()
-    print(f"phase 6: warm conversion {warm:.3f} s (stages synchronised); max_memory_allocated "
+    print(f"phase 6: warm conversion {warm:.3f} s (stages synchronised; each bdg_overlap "
+          f"launch metered behind a ~1 ms device sleep); max_memory_allocated "
           f"{peak / 2**20:.1f} MiB", flush=True)
+    meter.report("phase 6", "warm conversion")
     print(prof.report(), flush=True)
     print("phase 6: real pairs per Pfaffian size tot:", dict(sorted(widths.items())),
           f"total {sum(widths.values())}", flush=True)
@@ -1594,7 +1649,7 @@ def phase_fw_kernels(torch, kernels, testing):
     their twins on seeded inputs.  Returns the worst absolute error per
     kernel."""
     dev = torch.device("cuda")
-    worst = {"fw_frame_slab": 0.0, "site_overlap_schur_gmem": 0.0, "bdg_overlap_gmem": 0.0}
+    worst = {"fw_frame_slab": 0.0, "site_overlap_schur_gmem": 0.0, "bdg_overlap_wide": 0.0}
     # K9 at the L=1024 slab shape (B=64, Wb=512) with Xidx, Fidx = -1 and
     # colmap pads and 5 pad cuts (a short last slab)
     L, B, fb, Wb = 1024, 64, 64, 512
@@ -1648,23 +1703,29 @@ def phase_fw_kernels(torch, kernels, testing):
                   + f"): rel err {rel:.3e}, repeatable; kernel {t_k:.3f} ms, plain {t_p:.3f} ms",
                   flush=True)
             worst["site_overlap_schur_gmem"] = max(worst["site_overlap_schur_gmem"], ab)
-    # K4 global-memory kernel: nb = 96 and 128, both sweep layouts
-    for nb, k1, k2, x in ((96, 24, 24, 80), (128, 32, 24, 120)):
-        for mode in ("left", "right"):
+    # K4 past nb = 64: nb = 96 and 128 (clusters of 2 and 3), both sweep
+    # layouts, and nb = 272, past what a cluster holds (the global-memory
+    # elimination)
+    both = ("left", "right")
+    for nb, k1, k2, x, G, modes in ((96, 24, 24, 80, 32, both), (128, 32, 24, 120, 32, both),
+                                    (272, 24, 16, 260, 8, ("right",))):
+        for mode in modes:
             a = [torch.as_tensor(v, device=dev) for v in testing.random_bdg_overlap_case(
-                nb + k1, G=32, nb=nb, k1=k1, k2=k2, x=x, mode=mode)]
-            N1, n1 = kernels.bdg_overlap_gmem(*a)
-            N0, n0 = kernels.bdg_overlap_plain(*a)
-            rel = max(rel_err(N1, N0)[0], rel_err(n1, n0)[0])
-            ab = max(rel_err(N1, N0)[1], rel_err(n1, n0)[1])
+                nb + k1, G=G, nb=nb, k1=k1, k2=k2, x=x, mode=mode)]
+            rel, ab = bdg_err(torch, kernels, a, {})
             if not rel <= KERNEL_RTOL:
-                raise AssertionError(f"bdg_overlap_gmem nb={nb} {mode}: rel err {rel:.3e} > "
+                raise AssertionError(f"bdg_overlap nb={nb} {mode}: rel err {rel:.3e} > "
                                      f"{KERNEL_RTOL}")
-            t_k = cuda_ms(lambda: kernels.bdg_overlap_gmem(*a), 3)
+            call = lambda: kernels.bdg_overlap(*a)  # noqa: E731
+            check_repeatable(torch, f"phase 3c: bdg_overlap nb={nb} {mode}", call, call())
+            t_k = cuda_ms(call, 3)
             t_p = cuda_ms(lambda: kernels.bdg_overlap_plain(*a), 1)
-            print(f"phase 3c: bdg_overlap_gmem nb={nb} k1={k1} k2={k2} x={x} {mode} G=32: rel "
-                  f"err {rel:.3e}; kernel {t_k:.3f} ms, plain {t_p:.3f} ms", flush=True)
-            worst["bdg_overlap_gmem"] = max(worst["bdg_overlap_gmem"], ab)
+            nc = kernels.bdg_overlap_layout(nb)[0]
+            print(f"phase 3c: bdg_overlap nb={nb} k1={k1} k2={k2} x={x} {mode} G={G} ("
+                  + (f"a cluster of {nc}" if nc else "the global-memory elimination")
+                  + f"): rel err {rel:.3e}, repeatable; kernel {t_k:.3f} ms, plain {t_p:.3f} ms",
+                  flush=True)
+            worst["bdg_overlap_wide"] = max(worst["bdg_overlap_wide"], ab)
     return worst
 
 
@@ -1786,15 +1847,17 @@ def phase_fw_parity(torch, np, slater, fw, kernels):
 def phase_pf_gmem_parity(torch, np, pfaffian, kernels, testing):
     """Phase 4d: BdG past nb = 64: p+ip W=4, Lx=40 (L=160, half blocks up
     to 80 sites, bucket 96) at chi=64, on the card and on the CPU, with
-    phase 4b's bounds; bdg_overlap_gmem's launches are counted in the card
-    run, which also keeps one group per shape for its record; then a device
-    profile of one more card conversion.  Returns (launches, records)."""
+    phase 4b's bounds; bdg_overlap's launches are counted in the card run
+    (the record ``bdg_overlap_wide``: its sites past nb = 64, clusters of
+    two), which also keeps one group per shape for its record; then a
+    device profile of one more card conversion.  Returns (launches,
+    records)."""
     H = testing.pip_hamiltonian(4, 40)
     tp = {"chi_max": 64}
     overlaps, active, nbs = {}, {}, Counter()
     overlap_rec, group_rec = bdg_recorders(pfaffian, overlaps, active, nbs)
     overlap, group = pfaffian.bdg_overlap, pfaffian._overlap_group
-    kernels.bdg_overlap_gmem.launches = 0
+    kernels.bdg_overlap.launches = 0
     pfaffian.bdg_overlap, pfaffian._overlap_group = overlap_rec, group_rec
     try:
         t0 = time.perf_counter()
@@ -1803,9 +1866,10 @@ def phase_pf_gmem_parity(torch, np, pfaffian, kernels, testing):
         t_gpu = time.perf_counter() - t0
     finally:
         pfaffian.bdg_overlap, pfaffian._overlap_group = overlap, group
-    launches = {"bdg_overlap_gmem": kernels.bdg_overlap_gmem.launches}
-    if launches["bdg_overlap_gmem"] <= 0:
-        raise AssertionError("phase 4d: bdg_overlap_gmem was not launched")
+    launches = {"bdg_overlap_wide": kernels.bdg_overlap.launches}
+    if launches["bdg_overlap_wide"] <= 0 or not any(k[0] > 64 for k in nbs):
+        raise AssertionError(f"phase 4d: bdg_overlap launched {launches} times, on half "
+                             f"sizes {sorted(nbs)}: none past 64")
     t0 = time.perf_counter()
     cpu = pfaffian.H_to_MPS(H, tp, basis="C", device="cpu")
     t_cpu = time.perf_counter() - t0
@@ -1820,12 +1884,12 @@ def phase_pf_gmem_parity(torch, np, pfaffian, kernels, testing):
     if not d_w <= PARITY_TOL:
         raise AssertionError(f"phase 4d: entanglement spectra differ by {d_w:.3e}")
     failures = []
-    wide = {k: v for k, v in overlaps.items() if not kernels.bdg_overlap_fits_smem(*k)}
-    rec = pf_records(torch, np, kernels, "phase 4d", "bdg_overlap_gmem", wide, active, failures)
+    wide = {k: v for k, v in overlaps.items() if k[0] > 64}
+    rec = pf_records(torch, np, kernels, "phase 4d", "bdg_overlap_wide", wide, active, failures)
     if failures:
         raise AssertionError("phase 4d: " + "; ".join(failures))
     device_profile(torch, lambda: pfaffian.H_to_MPS(H, tp, basis="C", device="cuda"), "phase 4d")
-    return launches, {"bdg_overlap_gmem": rec}
+    return launches, {"bdg_overlap_wide": rec}
 
 
 def compare_frontends(np, a, b):
@@ -2668,12 +2732,23 @@ def rsf_cost(name, mode, args, kw, out):
         return (sum(2.0 * si * p * q for si in s),
                 sum(s) * p * 8 + nbytes(B) + extra + nbytes(out))
     if name == "rsf_ritz_select":
+        # in place: U (shift) or V and C V (select) over the block rows read
+        # once, the sizes, and what changes: the shifted diagonal entries of T
+        # (read and written), or lam (read), lam_out and the dropped columns'
+        # block rows (written)
+        from temfpy_torch.ops.kernels import RSF_SENTINEL, rsf_block_mask
+
         X, Y, sizes = args
         s, _c = _rsf_rows(sizes, kw["side"], X.shape[1])
         r = X.shape[-1]
         if mode == "shift":
-            return 2.0 * sum(s) * r, sum(s) * r * 8 + nbytes(Y) + nbytes(out)
-        return 4.0 * sum(s) * r, 2 * sum(s) * r * 8 + nbytes(kw["lam"]) + nbytes(out)
+            blk = rsf_block_mask(sizes, kw["side"], X.shape[1], X.dtype)[:, :, None]
+            shifted = int((~((blk * X * X).sum(1) > 0.25)).sum())
+            return 2.0 * sum(s) * r, sum(s) * r * 8 + nbytes(sizes) + shifted * 16
+        dropped = (out[1] == RSF_SENTINEL).sum(1).tolist()
+        return (4.0 * sum(s) * r,
+                2 * sum(s) * r * 8 + nbytes(sizes, kw["lam"], out[1])
+                + sum(si * d for si, d in zip(s, dropped)) * 8)
     lam_all = args[0]
     m, n = lam_all.shape
     if mode == "stats":
@@ -2709,6 +2784,10 @@ def rsf_library_ms(torch, kernels, name, mode, args, kw):
     return cuda_ms(lambda: torch.bmm(A, B), 3)
 
 
+RSF_IN_PLACE = {("rsf_ritz_select", "shift"): 1, ("rsf_ritz_select", "select"): 0}
+"""(kernel, mode) -> the argument a K11 call updates in place (T, V)."""
+
+
 class RsfRecords:
     """Per K11 kernel: the worst kernel-twin error and the summed kernel,
     twin, bound and library milliseconds over the calls it was given."""
@@ -2721,17 +2800,30 @@ class RsfRecords:
 
     def add(self, torch, kernels, label, name, mode, args, kw):
         """One call of kernel ``name`` against its twin: fails beyond the
-        tolerance, and for the redesigned ``rsf_apply`` and ``rsf_tsprod``
-        unless a second launch returns the same bits; times kernel, twin and
-        library call alike (:func:`cuda_ms`, TIMING_REPS) and the kernel's one call
-        with its wrapper's host work (:func:`timed`); returns the kernel's
-        output."""
+        tolerance, and for the redesigned ``rsf_apply``, ``rsf_tsprod`` and
+        ``rsf_ritz_select`` unless a second launch returns the same bits;
+        times kernel, twin and library call alike (:func:`cuda_ms`,
+        TIMING_REPS) and the kernel's one call with its wrapper's host work
+        (:func:`timed`); returns the kernel's output.  K11c updates T or V
+        in place (RSF_IN_PLACE): each of its launches gets a clone of that
+        operand of its own, made before the timed launches, so that no launch
+        reads another's output and ``args`` stay the twin's inputs."""
         kernel, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
-        call = lambda: kernel(mode, *args, **kw)  # noqa: E731
-        out, t_1 = timed(torch, call)
-        if name in ("rsf_apply", "rsf_tsprod"):
+        slot = RSF_IN_PLACE.get((name, mode))
+
+        def fresh():
+            if slot is None:
+                return args
+            return [a.clone() if i == slot else a for i, a in enumerate(args)]
+
+        call = lambda: kernel(mode, *fresh(), **kw)  # noqa: E731
+        first = fresh()
+        out, t_1 = timed(torch, lambda: kernel(mode, *first, **kw))
+        if name in ("rsf_apply", "rsf_tsprod", "rsf_ritz_select"):
             check_repeatable(torch, f"{label}: {name} {mode}", call, out)
-        t_k = cuda_ms(call, TIMING_REPS)
+        pool = iter([fresh() for _ in range(TIMING_REPS + 1)])
+        t_k = cuda_ms(lambda: kernel(mode, *next(pool), **kw), TIMING_REPS)
+        del pool
         ref = plain(mode, *args, **kw)
         t_p = cuda_ms(lambda: plain(mode, *args, **kw), TIMING_REPS)
         rel, ab = rsf_err(kernels, name, mode, args, kw, out, ref)
@@ -2946,13 +3038,14 @@ def phase_rsf_slice(torch, np, slater, fw, kernels, profiling, spectral, ph7):
     del C
     clean = compare_frontends(np, res["raw"], ph7["exact"])
     Hd = H + np.diag(1e-3 * np.random.default_rng(3).normal(size=L))
-    # every K11a launch of this conversion metered
+    # every K11a and K11c launch of this conversion metered
     meter = ConversionMeter(torch)
     ops = spectral._KERNEL_OPS
-    apply = meter.wrap(ops[0], lambda a, k: "rsf_apply",
-                       lambda a, k, o: rsf_cost("rsf_apply", a[0], a[1:], k, o))
+    apply, ritz = (meter.wrap(ops[i], lambda a, k, n=n: n,
+                              lambda a, k, o, n=n: rsf_cost(n, a[0], a[1:], k, o))
+                   for i, n in ((0, "rsf_apply"), (2, "rsf_ritz_select")))
     t0 = time.perf_counter()
-    with patched(spectral, _KERNEL_OPS=(apply, *ops[1:])):
+    with patched(spectral, _KERNEL_OPS=(apply, ops[1], ritz, ops[3])):
         rsf_d = with_rsf("1", lambda: slater.H_to_MPS(Hd, {"chi_max": 512}, device="cuda"))
     torch.cuda.synchronize()
     t_d = time.perf_counter() - t0
@@ -2970,8 +3063,8 @@ def phase_rsf_slice(torch, np, slater, fw, kernels, profiling, spectral, ph7):
           f"this size {res['warm']:.3f} s (eigh_batch {eig_rsf:.3f} s, of it rsf/eigh "
           f"{res['prof'].seconds.get('rsf/eigh', 0.0):.3f} s), exact frontend (phase 7) "
           f"{ph7['t_exact']:.3f} s (eigh_batch {ph7['eigh_exact']:.3f} s); disordered RSF "
-          f"conversion {t_d:.2f} s (metered: each K11a launch waits behind the meter's "
-          f"device sleep), cuts {stats_d}", flush=True)
+          f"conversion {t_d:.2f} s (metered: each K11a and K11c launch waits behind the "
+          f"meter's device sleep), cuts {stats_d}", flush=True)
     failures = []
     if stats["cuts"] != L or stats_d["cuts"] != L:
         failures.append(f"the frontend did not take every cut: {stats}, {stats_d}")
@@ -3105,7 +3198,7 @@ def main() -> int:
                     "temfpy_tpu/ops/pfaffian.py:295"),
         "bdg_overlap": ("temfpy_torch/csrc/bdg_overlap.cu",
                         "temfpy_tpu/pfaffian.py:772"),
-        "bdg_overlap_gmem": ("temfpy_torch/csrc/bdg_overlap.cu",
+        "bdg_overlap_wide": ("temfpy_torch/csrc/bdg_overlap.cu",
                              "temfpy_tpu/pfaffian.py:772"),
         "fw_frame_slab": ("temfpy_torch/csrc/fw_frame_slab.cu",
                           "temfpy_tpu/ops/fw.py:314"),

@@ -3,6 +3,7 @@
 // torch.complex128: real then imaginary part).
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -461,6 +462,212 @@ template <typename T>
 __device__ __forceinline__ T identity_ext(const T* M, int m, int a, int b) {
     if (a < m && b < m) return M[(long long)a * m + b];
     return (a == b) ? Num<T>::one() : Num<T>::zero();
+}
+
+// ---- Gauss-Jordan with the rows in registers over a thread-block cluster
+// (site_overlap_schur.cu: K2's [A | B]; bdg_overlap.cu: K4's [U* | I]) ----
+
+constexpr int kGJThreads = 512;
+constexpr int kGJWarps = kGJThreads / 32;
+constexpr int kNone = 0x7fffffff;
+
+// Rows a warp holds (row w + 16 a of its block, a < RA) when a lane holds
+// columns l + 32 b (b < CB): at most 36 float64 values a thread, so that
+// the 128 registers of a 512-thread block hold them with the loop's own
+// (kernels.schur_layout mirrors it).
+template <typename T, int CB>
+__host__ __device__ constexpr int gj_rows_per_warp() {
+    return std::is_same<T, double>::value
+               ? (CB <= 2 ? 8 : CB <= 4 ? 6 : CB <= 9 ? 4 : CB <= 12 ? 3 : 2)
+               : (CB <= 2 ? 4 : CB <= 4 ? 3 : CB <= 9 ? 2 : 1);
+}
+
+struct Cand {
+    double v;  // |pivot candidate|; -1 for none, -0.5 for NaN (loses to any number)
+    int pos;   // logical row
+    int who;   // (block rank << 16) | local row
+};
+
+__device__ __forceinline__ void cand_take(Cand& b, double v, int pos, int who) {
+    if (v > b.v || (v == b.v && pos < b.pos)) b = Cand{v, pos, who};
+}
+
+// Butterfly arg-max over the warp: every lane ends with the best.
+__device__ __forceinline__ void warp_cand(Cand& b) {
+    for (int d = 16; d > 0; d >>= 1)
+        cand_take(b, __shfl_xor_sync(0xffffffffu, b.v, d),
+                  __shfl_xor_sync(0xffffffffu, b.pos, d),
+                  __shfl_xor_sync(0xffffffffu, b.who, d));
+}
+
+__device__ __forceinline__ double shfl_val(double v, int src) {
+    return __shfl_sync(0xffffffffu, v, src);
+}
+__device__ __forceinline__ c128 shfl_val(c128 v, int src) {
+    return c128{__shfl_sync(0xffffffffu, v.re, src), __shfl_sync(0xffffffffu, v.im, src)};
+}
+
+// Gauss-Jordan with partial pivoting on the kb rows of a kb x mb matrix
+// [A | B] held in registers by a cluster of 512-thread blocks (a cluster of
+// one: a plain block): block q's warp w holds its rows w + 16 a (a < RA) in
+// R[a], a lane the columns l + 32 b (b < CB) of each; posr[a] is the row's
+// logical position (kNone: no row there).  A step: each warp's candidate
+// for column k (from the lane holding it), the block's best by a block
+// barrier, whose warp publishes that row in shared memory (cand_row, 2 mb
+// entries by step parity) before the cluster barrier, so that one barrier a
+// step serves the whole cluster; every block then reads the winner's
+// published row (local or distributed shared memory), scales it into pk
+// (mb entries) and updates its own rows.  Rows never move: a pivot swap
+// exchanges two logical positions.  The pivot is the first maximal |a| of
+// column k in logical order; a zero pivot leaves its row unscaled; the
+// arithmetic is temfpy_tpu/ops/linalg.py:gauss_solve_det's with physical
+// swaps, operation for operation.  On return the columns past k of each
+// row hold A^{-1} B at the row's logical position (column k <= kb - 1 of
+// step k is left as it was); every thread returns det A.
+//
+// INVERT (mb = kb = n, no B): the in-place inversion of A, the elimination
+// of [A | I] with the identity half never stored: at step k the dead
+// column k takes the inverse's column of the pivot row's original index
+// (its identity column, exact zeros but the pivot row's 1 until that
+// step), whose block-local row id (block rank << 16 | local row) goes to
+// piv_who[k] in each block's shared memory.  Its entries get the
+// operations [A | I] would give them (1 / pivot for the pivot row, 0 - a_k
+// (1 / pivot) for the others), so A^{-1}[posr, orig(piv_who[j])] = R[., j]
+// on return.  Every thread of every block of the cluster calls it.
+template <typename T, int CB, int RA, bool INVERT = false>
+__device__ __forceinline__ T cluster_gauss_jordan(T (&R)[RA][CB], int (&posr)[RA], int kb,
+                                                  int mb, T* cand_row, T* pk,
+                                                  int* piv_who = nullptr) {
+    namespace cg = cooperative_groups;
+    __shared__ Cand s_red[2][kGJWarps];  // each warp's candidate, by parity
+    __shared__ Cand s_slot[2];           // the block's candidate, read by the cluster
+    cg::cluster_group cluster = cg::this_cluster();
+    const int nc = (int)cluster.num_blocks(), q = (int)cluster.block_rank();
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const T one = Num<T>::one(), zero = Num<T>::zero();
+    const Cand none{-1.0, kNone, 0};
+    T det = one;  // the same in every thread
+#pragma unroll
+    for (int bk = 0; bk < CB; ++bk) {  // columns 32 bk .. 32 bk + 31: lane kk holds column k
+        for (int kk = 0; kk < 32; ++kk) {
+            const int k = 32 * bk + kk;
+            if (k >= kb) break;  // uniform
+            const int par = k & 1;
+            Cand best = none;  // column k of this warp's rows at or past step k
+            if (lane == kk)
+#pragma unroll
+                for (int a = 0; a < RA; ++a)
+                    if (posr[a] != kNone && posr[a] >= k)
+                        cand_take(best, pivot_mag(R[a][bk]), posr[a],
+                                  (q << 16) | (warp + kGJWarps * a));
+            warp_cand(best);
+            if (lane == 0) s_red[par][warp] = best;
+            __syncthreads();
+            Cand mine = lane < kGJWarps ? s_red[par][lane] : none;
+            warp_cand(mine);  // the block's best, in every lane of every warp
+            const int li = mine.who & 0xffff;
+            if (mine.pos != kNone && warp == li % kGJWarps) {  // publish it (columns k on)
+                const int ab = li / kGJWarps;
+#pragma unroll
+                for (int b = INVERT ? 0 : bk; b < CB; ++b) {
+                    T v = R[0][b];
+#pragma unroll
+                    for (int a = 1; a < RA; ++a)
+                        if (a == ab) v = R[a][b];
+                    const int j = lane + 32 * b;
+                    if ((INVERT || j >= k) && j < mb) cand_row[par * mb + j] = v;
+                }
+            }
+            Cand win = mine;
+            if (nc > 1) {
+                if (tid == 0) s_slot[par] = mine;
+                cluster.sync();  // every block's candidate and row are out
+                win = lane < nc ? *cluster.map_shared_rank(&s_slot[par], lane) : none;
+                warp_cand(win);
+            } else {
+                __syncthreads();
+            }
+            const int qo = win.who >> 16, lo = win.who & 0xffff, p = win.pos;
+            if (INVERT && tid == 0) piv_who[k] = win.who;
+            const T* prem =
+                (qo == q ? cand_row : cluster.map_shared_rank(cand_row, qo)) + par * mb;
+            const T piv = prem[k];
+            const T safe = Num<T>::is_zero(piv) ? one : piv;
+            for (int j = (INVERT ? 0 : k + 1) + tid; j < mb; j += kGJThreads)
+                pk[j] = (INVERT && j == k) ? one / safe : prem[j] / safe;
+            det = ((p != k) ? -det : det) * piv;
+            __syncthreads();
+            // every other row: A[i, j] -= A[i, k] pk[j] for j > k; the pivot
+            // row becomes pk (column k is never read again; INVERT: it takes
+            // the new inverse column, every column updated)
+            T fac[RA];
+#pragma unroll
+            for (int a = 0; a < RA; ++a) {
+                fac[a] = shfl_val(R[a][bk], kk);
+                posr[a] = posr[a] == k ? p : (posr[a] == p ? k : posr[a]);
+            }
+            const int pivot_a = (qo == q && warp == lo % kGJWarps) ? lo / kGJWarps : -1;
+#pragma unroll
+            for (int b = INVERT ? 0 : bk; b < CB; ++b) {
+                const int j = lane + 32 * b;
+                if (INVERT ? j < mb : (j > k && j < mb)) {
+                    const T pj = pk[j];
+                    const bool col_k = INVERT && j == k;
+#pragma unroll
+                    for (int a = 0; a < RA; ++a)
+                        R[a][b] = a == pivot_a ? pj : (col_k ? zero : R[a][b]) - fac[a] * pj;
+                }
+            }
+        }
+    }
+    return det;
+}
+
+// The same elimination with [A | B] (kb x mb, row stride mb) left in global
+// memory at O, one 512-thread block, for a matrix no cluster holds in
+// registers: the pivot (the first maximal |a| of column k over rows
+// k..kb-1) is swapped into row k, scaled in place and read from there by
+// the rank-one update of every other row, a warp a row, through L2.  On
+// return rows 0..kb-1 hold A^{-1} B in their columns kb on; every thread
+// returns det A.  Every thread of the block calls it.
+template <typename T>
+__device__ __forceinline__ T gmem_gauss_jordan(T* O, int kb, int mb) {
+    __shared__ Cand s_red[kGJWarps];
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const T one = Num<T>::one();
+    const Cand none{-1.0, kNone, 0};
+    T det = one;  // the same in every thread
+    for (int k = 0; k < kb; ++k) {
+        Cand best = none;
+        for (int i = k + tid; i < kb; i += kGJThreads)
+            cand_take(best, pivot_mag(O[(long long)i * mb + k]), i, 0);
+        warp_cand(best);
+        if (lane == 0) s_red[warp] = best;
+        __syncthreads();
+        Cand win = lane < kGJWarps ? s_red[lane] : none;
+        warp_cand(win);
+        const int p = win.pos;
+        T* rk = O + (long long)k * mb;
+        T* rp = O + (long long)p * mb;
+        const T piv = rp[k];
+        const T safe = Num<T>::is_zero(piv) ? one : piv;
+        det = ((p != k) ? -det : det) * piv;
+        __syncthreads();  // column k and the pivot are read
+        for (int j = k + tid; j < mb; j += kGJThreads) {  // swap rows k and p, scale row k
+            const T a = rp[j], b = rk[j];
+            rk[j] = j > k ? a / safe : a;
+            if (p != k) rp[j] = b;
+        }
+        __syncthreads();  // the pivot row is in place
+        for (int i = warp; i < kb; i += kGJWarps) {
+            if (i == k) continue;
+            T* ri = O + (long long)i * mb;
+            const T f = ri[k];
+            for (int j = k + 1 + lane; j < mb; j += 32) ri[j] = ri[j] - f * rk[j];
+        }
+        __syncthreads();  // the step is done
+    }
+    return det;
 }
 
 // ---- the randomized spectral frontend (rsf_*.cu) ----

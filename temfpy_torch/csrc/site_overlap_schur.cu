@@ -212,46 +212,6 @@ __global__ void __launch_bounds__(kOThreads)
 
 // ---- (2) Gauss-Jordan on [A | B] and S = D - C X, one cluster per site ----
 
-constexpr int kSThreads = 512;
-constexpr int kSWarps = kSThreads / 32;
-constexpr int kNone = 0x7fffffff;
-
-// Rows a warp holds (row w + 16 a of its block, a < RA) when a lane holds
-// columns l + 32 b (b < CB): at most 36 float64 values a thread, so that
-// the 128 registers of a 512-thread block hold them with the loop's own
-// (kernels.schur_layout mirrors it).
-template <typename T, int CB>
-__host__ __device__ constexpr int schur_rows_per_warp() {
-    return std::is_same<T, double>::value
-               ? (CB <= 2 ? 8 : CB <= 4 ? 6 : CB <= 9 ? 4 : CB <= 12 ? 3 : 2)
-               : (CB <= 2 ? 4 : CB <= 4 ? 3 : CB <= 9 ? 2 : 1);
-}
-
-struct Cand {
-    double v;  // |pivot candidate|; -1 for none, -0.5 for NaN (loses to any number)
-    int pos;   // logical row
-    int who;   // (block rank << 16) | local row
-};
-
-__device__ __forceinline__ void cand_take(Cand& b, double v, int pos, int who) {
-    if (v > b.v || (v == b.v && pos < b.pos)) b = Cand{v, pos, who};
-}
-
-// Butterfly arg-max over the warp: every lane ends with the best.
-__device__ __forceinline__ void warp_cand(Cand& b) {
-    for (int d = 16; d > 0; d >>= 1)
-        cand_take(b, __shfl_xor_sync(0xffffffffu, b.v, d),
-                  __shfl_xor_sync(0xffffffffu, b.pos, d),
-                  __shfl_xor_sync(0xffffffffu, b.who, d));
-}
-
-__device__ __forceinline__ double shfl_val(double v, int src) {
-    return __shfl_sync(0xffffffffu, v, src);
-}
-__device__ __forceinline__ c128 shfl_val(c128 v, int src) {
-    return c128{__shfl_sync(0xffffffffu, v.re, src), __shfl_sync(0xffffffffu, v.im, src)};
-}
-
 // S = D - C X from site g's workspace O (X in rows 0..kb-1, columns kb on;
 // C and D in rows kb on) into Sg, by warps w0, w0 + nw, ... of the caller's
 // nw: float64 as 16 x 8 DMMA tiles, complex128 one entry a thread (CUDA
@@ -302,38 +262,32 @@ __device__ __forceinline__ void schur_product(const T* O, int mb, int kb, T* __r
 }
 
 // The block's rows of [A | B] live in registers: row w + 16 a of the block
-// with warp w, its columns l + 32 b with lane l.  A step: each warp's
-// candidate for column k (from the lane holding it), the block's best by a
-// block barrier, whose warp publishes that row in shared memory (cand_row)
-// before the cluster barrier, so that one barrier a step serves the whole
-// cluster; every block then reads the winner's published row (local or
-// distributed shared memory), scales it into pk and updates its rows.
+// with warp w, its columns l + 32 b with lane l; common.cuh's
+// cluster_gauss_jordan (shared with K4) eliminates them, one cluster barrier
+// a step.
 template <typename T, int CB>
-__global__ void __launch_bounds__(kSThreads)
+__global__ void __launch_bounds__(kGJThreads)
     site_schur_kernel(T* __restrict__ work, int mb, int kb, int rpc, T* __restrict__ det_out,
                       T* __restrict__ S_out) {
-    constexpr int RA = schur_rows_per_warp<T, CB>();
+    constexpr int RA = gj_rows_per_warp<T, CB>();
     cg::cluster_group cluster = cg::this_cluster();
     const int nc = (int)cluster.num_blocks(), q = (int)cluster.block_rank();
     const int g = blockIdx.x / nc;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     T* cand_row = reinterpret_cast<T*>(smem_raw);  // 2 x mb: the block's best row, by parity
     T* pk = cand_row + 2 * mb;                      // the scaled pivot row of a step
-    __shared__ Cand s_red[2][kSWarps];              // each warp's candidate, by parity
-    __shared__ Cand s_slot[2];                      // the block's candidate, read by the cluster
 
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int row0 = q * rpc, nrows = max(0, min(kb, row0 + rpc) - row0);
     T* O = work + (long long)g * mb * mb;  // rotated by `off`, from site_overlap_kernel
-    const T one = Num<T>::one(), zero = Num<T>::zero();
-    const Cand none{-1.0, kNone, 0};
+    const T zero = Num<T>::zero();
 
     // this thread's part of the block's rows
     T R[RA][CB];
     int posr[RA];
 #pragma unroll
     for (int a = 0; a < RA; ++a) {
-        const int i = warp + kSWarps * a;
+        const int i = warp + kGJWarps * a;
         posr[a] = i < nrows ? row0 + i : kNone;  // kNone: no row here
 #pragma unroll
         for (int b = 0; b < CB; ++b) {
@@ -341,77 +295,7 @@ __global__ void __launch_bounds__(kSThreads)
             R[a][b] = (i < nrows && j < mb) ? O[(long long)(row0 + i) * mb + j] : zero;
         }
     }
-
-    T det = one;  // the same in every thread
-#pragma unroll
-    for (int bk = 0; bk < CB; ++bk) {  // columns 32 bk .. 32 bk + 31: lane kk holds column k
-        for (int kk = 0; kk < 32; ++kk) {
-            const int k = 32 * bk + kk;
-            if (k >= kb) break;  // uniform
-            const int par = k & 1;
-            Cand best = none;  // column k of this warp's rows at or past step k
-            if (lane == kk)
-#pragma unroll
-                for (int a = 0; a < RA; ++a)
-                    if (posr[a] != kNone && posr[a] >= k)
-                        cand_take(best, pivot_mag(R[a][bk]), posr[a],
-                                  (q << 16) | (warp + kSWarps * a));
-            warp_cand(best);
-            if (lane == 0) s_red[par][warp] = best;
-            __syncthreads();
-            Cand mine = lane < kSWarps ? s_red[par][lane] : none;
-            warp_cand(mine);  // the block's best, in every lane of every warp
-            const int li = mine.who & 0xffff;
-            if (mine.pos != kNone && warp == li % kSWarps) {  // publish it, columns k on
-                const int ab = li / kSWarps;
-#pragma unroll
-                for (int b = bk; b < CB; ++b) {
-                    T v = R[0][b];
-#pragma unroll
-                    for (int a = 1; a < RA; ++a)
-                        if (a == ab) v = R[a][b];
-                    const int j = lane + 32 * b;
-                    if (j >= k && j < mb) cand_row[par * mb + j] = v;
-                }
-            }
-            Cand win = mine;
-            if (nc > 1) {
-                if (tid == 0) s_slot[par] = mine;
-                cluster.sync();  // every block's candidate and row are out
-                win = lane < nc ? *cluster.map_shared_rank(&s_slot[par], lane) : none;
-                warp_cand(win);
-            } else {
-                __syncthreads();
-            }
-            const int qo = win.who >> 16, lo = win.who & 0xffff, p = win.pos;
-            const T* prem =
-                (qo == q ? cand_row : cluster.map_shared_rank(cand_row, qo)) + par * mb;
-            const T piv = prem[k];
-            const T safe = Num<T>::is_zero(piv) ? one : piv;
-            for (int j = k + 1 + tid; j < mb; j += kSThreads) pk[j] = prem[j] / safe;
-            det = ((p != k) ? -det : det) * piv;
-            __syncthreads();
-            // every other row: A[i, j] -= A[i, k] pk[j] for j > k; the pivot
-            // row becomes pk (column k is never read again)
-            T fac[RA];
-#pragma unroll
-            for (int a = 0; a < RA; ++a) {
-                fac[a] = shfl_val(R[a][bk], kk);
-                posr[a] = posr[a] == k ? p : (posr[a] == p ? k : posr[a]);
-            }
-            const int pivot_a = (qo == q && warp == lo % kSWarps) ? lo / kSWarps : -1;
-#pragma unroll
-            for (int b = bk; b < CB; ++b) {
-                const int j = lane + 32 * b;
-                if (j > k && j < mb) {
-                    const T pj = pk[j];
-#pragma unroll
-                    for (int a = 0; a < RA; ++a)
-                        R[a][b] = a == pivot_a ? pj : R[a][b] - fac[a] * pj;
-                }
-            }
-        }
-    }
+    const T det = cluster_gauss_jordan<T, CB, RA>(R, posr, kb, mb, cand_row, pk);
     // X = A^{-1} B into the workspace's rows 0..kb-1 by logical position
 #pragma unroll
     for (int a = 0; a < RA; ++a)
@@ -429,59 +313,23 @@ __global__ void __launch_bounds__(kSThreads)
     }
 
     const int sb = mb - kb;
-    schur_product(O, mb, kb, S_out + (long long)g * sb * sb, q * kSWarps + warp, nc * kSWarps);
+    schur_product(O, mb, kb, S_out + (long long)g * sb * sb, q * kGJWarps + warp, nc * kGJWarps);
     if (q == 0 && tid == 0) det_out[g] = det;
 }
 
 // The global-memory elimination, for an always block that no cluster holds
 // in registers (kernels.schur_layout gives nc = 0: mb > 512, or more than
-// 8 blocks' rows): one block per site, [A | B] left in the workspace.  The
-// steps are site_schur_kernel's (the pivot is the first maximal |a| of
-// column k over rows k..kb-1, the arithmetic the same operation for
-// operation), but the pivot row is swapped into row k, scaled in place and
-// read from there by the rank-one update of every other row, a warp a row,
-// through L2; then S = D - C X over the block's warps.
+// 8 blocks' rows): one block per site, [A | B] left in the workspace
+// (common.cuh:gmem_gauss_jordan, the same steps and arithmetic, shared with
+// K4); then S = D - C X over the block's warps.
 template <typename T>
-__global__ void __launch_bounds__(kSThreads)
+__global__ void __launch_bounds__(kGJThreads)
     site_schur_gmem_kernel(T* __restrict__ work, int mb, int kb, T* __restrict__ det_out,
                            T* __restrict__ S_out) {
-    __shared__ Cand s_red[kSWarps];
-    const int g = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = blockIdx.x, tid = threadIdx.x, warp = tid >> 5;
     T* O = work + (long long)g * mb * mb;
-    const T one = Num<T>::one();
-    const Cand none{-1.0, kNone, 0};
-    T det = one;  // the same in every thread
-    for (int k = 0; k < kb; ++k) {
-        Cand best = none;
-        for (int i = k + tid; i < kb; i += kSThreads)
-            cand_take(best, pivot_mag(O[(long long)i * mb + k]), i, 0);
-        warp_cand(best);
-        if (lane == 0) s_red[warp] = best;
-        __syncthreads();
-        Cand win = lane < kSWarps ? s_red[lane] : none;
-        warp_cand(win);
-        const int p = win.pos;
-        T* rk = O + (long long)k * mb;
-        T* rp = O + (long long)p * mb;
-        const T piv = rp[k];
-        const T safe = Num<T>::is_zero(piv) ? one : piv;
-        det = ((p != k) ? -det : det) * piv;
-        __syncthreads();  // column k and the pivot are read
-        for (int j = k + tid; j < mb; j += kSThreads) {  // swap rows k and p, scale row k
-            const T a = rp[j], b = rk[j];
-            rk[j] = j > k ? a / safe : a;
-            if (p != k) rp[j] = b;
-        }
-        __syncthreads();  // the pivot row is in place
-        for (int i = warp; i < kb; i += kSWarps) {
-            if (i == k) continue;
-            T* ri = O + (long long)i * mb;
-            const T f = ri[k];
-            for (int j = k + 1 + lane; j < mb; j += 32) ri[j] = ri[j] - f * rk[j];
-        }
-        __syncthreads();  // the step is done
-    }
-    schur_product(O, mb, kb, S_out + (long long)g * (mb - kb) * (mb - kb), warp, kSWarps);
+    const T det = gmem_gauss_jordan(O, kb, mb);
+    schur_product(O, mb, kb, S_out + (long long)g * (mb - kb) * (mb - kb), warp, kGJWarps);
     if (tid == 0) det_out[g] = det;
 }
 
@@ -500,13 +348,13 @@ int launch(const void* frames_b, const void* frames_k, int G, int L, int Wb, int
         if (err != cudaSuccess) return (int)err;
     }
     if (nc == 0) {
-        site_schur_gmem_kernel<T><<<G, kSThreads, 0, stream>>>((T*)work, mb, kb, (T*)det_out,
+        site_schur_gmem_kernel<T><<<G, kGJThreads, 0, stream>>>((T*)work, mb, kb, (T*)det_out,
                                                                 (T*)S_out);
         return (int)cudaGetLastError();
     }
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(G * nc);
-    cfg.blockDim = dim3(kSThreads);
+    cfg.blockDim = dim3(kGJThreads);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = stream;
     cudaLaunchAttribute attr[1];
@@ -518,7 +366,7 @@ int launch(const void* frames_b, const void* frames_k, int G, int L, int Wb, int
     cfg.numAttrs = 1;
 #define TF_SCHUR(CB)                                                                      \
     if (mb <= 32 * CB) {                                                                  \
-        if (rpc > kSWarps * schur_rows_per_warp<T, CB>()) return (int)cudaErrorInvalidValue; \
+        if (rpc > kGJWarps * gj_rows_per_warp<T, CB>()) return (int)cudaErrorInvalidValue; \
         const cudaError_t e = cudaLaunchKernelEx(&cfg, site_schur_kernel<T, CB>, (T*)work, \
                                                  mb, kb, rpc, (T*)det_out, (T*)S_out);     \
         return (int)(e != cudaSuccess ? e : cudaGetLastError());                          \

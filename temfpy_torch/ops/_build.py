@@ -51,10 +51,9 @@ _SIGNATURES = {
     # smem, work, det_out, S_out, stream
     "tf_site_overlap_schur": [_i, _vp, _vp] + [_i] * 4 + [_vp] * 8 + [_i] * 6
     + [_vp] * 4,
-    # V1h, V2h, j1, j2, thresh, G, nb, k1, k2, N_out, norm_out, stream
-    "tf_bdg_overlap": [_vp] * 5 + [_i] * 4 + [_vp] * 3,
-    # ... as tf_bdg_overlap, with the workspace before N_out
-    "tf_bdg_overlap_gmem": [_vp] * 5 + [_i] * 4 + [_vp] * 4,
+    # V1h, V2h, j1, j2, thresh, G, nb, k1, k2, cluster, rows_per_block, smem,
+    # work, N_out, norm_out, stream
+    "tf_bdg_overlap": [_vp] * 5 + [_i] * 7 + [_vp] * 4,
     # VT, flat, Cmat, out, B, L, kb, keb, fb, Wb, right, stream
     "tf_fw_frame_slab": [_vp] * 4 + [_i] * 7 + [_vp],
     # N, norm, pos_b, pos_k, cnt_b, cnt_k, pr, pc, tab0, tab1, tab2, out,
@@ -83,9 +82,9 @@ _SIGNATURES = {
     "tf_rsf_combine": [_vp] * 6 + [_d] + [_i] * 6 + [_vp],
     # U, T, sizes, big, m, L, r, right, stream
     "tf_rsf_ritz_shift": [_vp] * 3 + [_d] + [_i] * 4 + [_vp],
-    # V, CV, lam, sizes, Vk, lam_out, lo2, hi_ext, res_tol, sentinel, m, L, r,
-    # right, stream
-    "tf_rsf_ritz_select": [_vp] * 6 + [_d] * 4 + [_i] * 4 + [_vp],
+    # V (updated in place), CV, lam, sizes, lam_out, lo2, hi_ext, res_tol,
+    # sentinel, m, L, r, right, stream
+    "tf_rsf_ritz_select": [_vp] * 5 + [_d] * 4 + [_i] * 4 + [_vp],
     # lam, tr, k, nf, tr_res, order, sentinel, m, n, stream
     "tf_rsf_frames_stats": [_vp] * 6 + [_d] + [_i] * 2 + [_vp],
     # U_all, Yf, lam, k, nf, tr_res, order, slab, packed, sentinel, m, L, n,

@@ -110,8 +110,12 @@ def test_pf_fill_kernel_matches_twin(cuda, w, spec):
 
 
 @pytest.mark.parametrize("nb,k1,k2,x", [(8, 8, 8, 5), (32, 16, 8, 30), (32, 24, 24, 17),
-                                        (64, 24, 24, 61), (64, 16, 24, 40)])
+                                        (48, 24, 8, 45), (64, 24, 24, 61), (64, 16, 24, 40),
+                                        (72, 24, 16, 70), (128, 32, 24, 120),
+                                        (160, 16, 16, 150)])
 def test_bdg_overlap_kernel_matches_twin(cuda, nb, k1, k2, x):
+    """Half sizes in one block (nb <= 64) and in clusters of 2, 3 and 5
+    (kernels.bdg_overlap_layout); a second launch returns the same bits."""
     c = [torch.as_tensor(a, device=cuda)
          for a in testing.random_bdg_overlap_case(nb, G=5, nb=nb, k1=k1, k2=k2, x=x)]
     before = kernels.bdg_overlap.launches
@@ -119,6 +123,25 @@ def test_bdg_overlap_kernel_matches_twin(cuda, nb, k1, k2, x):
     assert kernels.bdg_overlap.launches == before + 1
     N0, norm0 = kernels.bdg_overlap_plain(*c)
     assert _rel(N, N0) <= RTOL and _rel(norm, norm0) <= RTOL
+    N2, norm2 = kernels.bdg_overlap(*c)
+    assert torch.equal(_bits(N2), _bits(N)) and torch.equal(_bits(norm2), _bits(norm))
+
+
+@pytest.mark.parametrize("nb", [32, 64])
+def test_bdg_overlap_zero_pivot_midway(cuda, nb):
+    """A site whose ket frame has a zero column j: U* has a zero column, the
+    elimination meets an exact zero pivot at step j (its row left
+    unscaled, as in the twin), det U* = 0 and the norm is NaN; N stays
+    finite and equals the twin's, and the other sites are untouched."""
+    c = [torch.as_tensor(a, device=cuda)
+         for a in testing.random_bdg_overlap_case(nb + 1, G=3, nb=nb, k1=16, k2=8, x=nb - 2)]
+    c[1][1, :, nb // 2] = 0.0
+    N, norm = kernels.bdg_overlap(*c)
+    N0, norm0 = kernels.bdg_overlap_plain(*c)
+    assert torch.equal(torch.isnan(norm), torch.isnan(norm0))
+    assert bool(torch.isnan(norm[1])) and bool(torch.isfinite(norm[[0, 2]]).all())
+    assert bool(torch.isfinite(N).all())
+    assert _rel(N, N0) <= RTOL and _rel(norm[[0, 2]], norm0[[0, 2]]) <= RTOL
 
 
 def test_bdg_overlap_guard_poisons_the_norm(cuda):
@@ -180,16 +203,20 @@ def test_site_overlap_gmem_kernel_matches_twin(cuda, mode, kb, sb, dtype):
     assert _rel(d1[:, None, None] * s1, d0[:, None, None] * s0) <= RTOL
 
 
-@pytest.mark.parametrize("nb,k1,k2,x", [(96, 24, 24, 80), (128, 32, 24, 120)])
+@pytest.mark.parametrize("nb,k1,k2,x", [(257, 24, 24, 250), (272, 16, 24, 266)])
 def test_bdg_overlap_gmem_kernel_matches_twin(cuda, nb, k1, k2, x):
+    """Half sizes past what a cluster holds take the global-memory
+    elimination (the layout's nc = 0), through the one wrapper."""
+    assert kernels.bdg_overlap_layout(nb)[0] == 0
     c = [torch.as_tensor(a, device=cuda)
          for a in testing.random_bdg_overlap_case(nb, G=4, nb=nb, k1=k1, k2=k2, x=x)]
-    smem, gmem = kernels.bdg_overlap.launches, kernels.bdg_overlap_gmem.launches
+    before = kernels.bdg_overlap.launches
     N, norm = kernels.bdg_overlap(*c)
-    assert kernels.bdg_overlap_gmem.launches == gmem + 1
-    assert kernels.bdg_overlap.launches == smem
+    assert kernels.bdg_overlap.launches == before + 1
     N0, norm0 = kernels.bdg_overlap_plain(*c)
     assert _rel(N, N0) <= RTOL and _rel(norm, norm0) <= RTOL
+    N2, norm2 = kernels.bdg_overlap(*c)
+    assert torch.equal(_bits(N2), _bits(N)) and torch.equal(_bits(norm2), _bits(norm))
 
 
 @pytest.mark.parametrize("w", [4, 8, 16, 24, 64])
@@ -325,7 +352,8 @@ def test_rsf_kernels_match_twins(cuda, side):
         kwd = {k: _as_cuda(v, cuda) for k, v in kw.items()}
         kernel, plain = getattr(kernels, name), getattr(kernels, name + "_plain")
         before = kernel.launches
-        got = kernel(mode, *a, **kwd)
+        # K11c works in place (on T or V): the kernel gets clones
+        got = kernel(mode, *(x.clone() for x in a), **kwd)
         assert kernel.launches == before + 1
         ref = plain(mode, *a, **kwd)
         got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
@@ -338,6 +366,43 @@ def test_rsf_kernels_match_twins(cuda, side):
                     (name, mode)
                 scale = max(float(r[fin].abs().max()), 1.0)
                 assert float((g - r)[fin].abs().max()) <= RTOL * scale, (name, mode)
+
+
+@pytest.mark.parametrize("side", ["L", "R"])
+def test_rsf_ritz_select_in_place(cuda, side):
+    """K11c at block sizes 0, 1 and L/2 (L = 256, r = 64): "shift" updates
+    T itself, as the twin; "select" reads and writes only the block rows of
+    V (a marker outside them stays), zeroes the dropped columns there
+    exactly, and leaves the kept columns and lam_out equal to the twin's
+    bit for bit; a second launch on a fresh copy gives the same bits."""
+    L, r = 256, 64
+    sizes_np = np.array([0, 1, L // 2, 37], np.int32)
+    m = sizes_np.size
+    rng = np.random.default_rng(21 + (side == "R"))
+    sizes = torch.as_tensor(sizes_np, device=cuda)
+    blk = kernels.rsf_block_mask(sizes, side, L)[:, :, None]
+    U = blk * torch.as_tensor(rng.standard_normal((m, L, r)), device=cuda) / 4
+    T = torch.as_tensor(rng.standard_normal((m, r, r)), device=cuda)
+    want = kernels.rsf_ritz_select_plain("shift", U, T, sizes, side=side)
+    got = kernels.rsf_ritz_select("shift", U, T.clone(), sizes, side=side)
+    assert torch.equal(got, want)
+    lam = torch.as_tensor(rng.choice([0.3, 0.5, 1e-9, 2.5], size=(m, r)), device=cuda)
+    CV = lam[:, None, :] * U + blk * torch.as_tensor(
+        rng.choice([0.0, 1e-4], size=(m, 1, r)) * rng.standard_normal((m, L, r)), device=cuda)
+    kw = {"side": side, "lam": lam, "lo": 1e-2, "hi": np.inf, "res_tol": 1e-6}
+    Vk, lk = kernels.rsf_ritz_select_plain("select", U, CV, sizes, **kw)
+    V = U + (1 - blk) * 7.0  # a marker outside the block rows
+    out, lam_out = kernels.rsf_ritz_select("select", V, CV, sizes, **kw)
+    assert out is V and torch.equal(_bits(lam_out), _bits(lk))
+    keep = (lk != kernels.RSF_SENTINEL)[:, None, :]
+    assert bool(keep.any()) and bool((~keep).any())
+    kept = blk.bool() & keep
+    assert torch.equal(_bits(torch.where(kept, V, 0.0)), _bits(torch.where(kept, Vk, 0.0)))
+    assert bool((V[(blk.bool() & ~keep).expand_as(V)] == 0.0).all())
+    assert bool((V[(1 - blk).bool().expand_as(V)] == 7.0).all())
+    V2 = U + (1 - blk) * 7.0
+    assert torch.equal(_bits(kernels.rsf_ritz_select("select", V2, CV, sizes, **kw)[0]),
+                       _bits(V))
 
 
 def test_rsf_conversion_on_cuda_matches_cpu(cuda, monkeypatch):

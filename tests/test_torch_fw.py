@@ -199,15 +199,15 @@ def test_site_overlap_picks_gmem_above_shared_memory(dtype, limit):
 
 @pytest.mark.parametrize("k", [8, 24, 48])
 def test_bdg_overlap_picks_gmem_above_shared_memory(k):
-    """nb = 64 (bench config 5's centre bucket) fits for the active counts
-    of the main path; the next bucket, nb = 96, takes the global-memory
-    kernel; at every k the switch sits where [U* | I], P, Q, the pivot
-    column and the determinant outgrow 227 KB."""
-    assert kernels.bdg_overlap_fits_smem(64, k, k)
-    assert not kernels.bdg_overlap_fits_smem(96, k, k)
-    nb = max(n for n in range(1, 200) if (2 * n * n + 2 * k * n + n + 1) * 16 <= 227 * 1024)
-    assert kernels.bdg_overlap_fits_smem(nb, k, k)
-    assert not kernels.bdg_overlap_fits_smem(nb + 1, k, k)
+    """The global-memory elimination takes exactly the half sizes whose U*
+    no cluster of 8 blocks holds in registers (nb > 256), at every active
+    count k (the layout depends on nb alone); the per-site workspace grows
+    with k."""
+    assert kernels.bdg_overlap_layout(64)[0] == 1
+    assert kernels.bdg_overlap_layout(96)[0] == 2
+    nb = max(n for n in range(1, 400) if kernels.bdg_overlap_layout(n)[0] > 0)
+    assert nb == 256 and kernels.bdg_overlap_layout(nb + 1) == (0, 0, 0)
+    assert kernels.bdg_overlap_workspace(nb, k, k) == 2 * nb * nb + 2 * k * nb + 2 * k * k
 
 
 def test_sweep_cache_keyed_by_values():

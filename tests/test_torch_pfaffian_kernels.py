@@ -186,16 +186,65 @@ def test_wrappers_reject_bad_arguments():
         ops.batched_pfaffian(torch.zeros(3, 3))
 
 
-@pytest.mark.parametrize("nb, fits", [(64, True), (96, False)])
-def test_bdg_overlap_shared_memory_limit(nb, fits):
-    """The CUDA wrapper's checks accept any half size; the largest half
-    block that fits in shared memory (nb = 64, bench config 5's centre)
-    takes the shared-memory kernel and the next bucket (nb = 96) the
-    global-memory one, chosen from the shape before any launch."""
+@pytest.mark.parametrize("nb, nc", [(8, 1), (32, 1), (48, 1), (64, 1), (65, 2), (96, 2),
+                                    (97, 3), (128, 3), (129, 5), (256, 8), (257, 0)])
+def test_bdg_overlap_shared_memory_limit(nb, nc):
+    """The CUDA wrapper's checks accept any half size; the elimination's
+    layout (kernels.bdg_overlap_layout) holds U* (nb x nb, complex128: the
+    in-place inversion stores no identity half) in one block's registers
+    up to nb = 64 (bench config 5's centre bucket), in a cluster of nc
+    blocks up to nb = 256, and past that takes the global-memory
+    elimination (nc = 0), chosen from the shape before any launch; a
+    block's rows follow K2's layout at width nb, its shared memory holds
+    two published rows, the pivot row and each step's pivot id."""
     G, k = 2, 24
     args = (torch.zeros(G, 2 * nb, nb, dtype=torch.complex128),
             torch.zeros(G, 2 * nb, nb, dtype=torch.complex128),
             torch.zeros(G, k, dtype=torch.int32), torch.zeros(G, k, dtype=torch.int32),
             torch.zeros(G, dtype=torch.float64))
     assert kernels.bdg_overlap_check(*args) == (G, nb, k, k)
-    assert kernels.bdg_overlap_fits_smem(nb, k, k) == fits
+    got, rows, smem = kernels.bdg_overlap_layout(nb)
+    assert got == nc
+    if nc:
+        assert rows * nc >= nb > rows * (nc - 1) and smem == 3 * nb * 16 + 4 * nb
+        assert (nc, rows) == kernels.schur_layout(nb, nb, torch.complex128)[:2]
+
+
+@pytest.mark.parametrize("bad, err", [
+    ("rows", ValueError), ("dtype", TypeError), ("thresh", TypeError), ("int64", TypeError),
+    ("flat_j", ValueError), ("sites", ValueError)])
+def test_bdg_overlap_rejects_bad_arguments(bad, err):
+    """The wrapper's argument checks (kernels.bdg_overlap_check, run before
+    any launch): frames (G, 2nb, nb) complex128 alike, thresh float64 (G,),
+    j1/j2 int32 (G, k) tables."""
+    G, nb, k = 2, 8, 4
+    V = torch.zeros(G, 2 * nb, nb, dtype=torch.complex128)
+    j = torch.zeros(G, k, dtype=torch.int32)
+    args = {"V1h": V, "V2h": V.clone(), "j1": j, "j2": j.clone(),
+            "thresh": torch.zeros(G, dtype=torch.float64)}
+    args.update({
+        "rows": {"V2h": torch.zeros(G, 2 * nb + 2, nb, dtype=torch.complex128)},
+        "dtype": {"V1h": V.to(torch.complex64)},
+        "thresh": {"thresh": torch.zeros(G, dtype=torch.float32)},
+        "int64": {"j1": j.long()},
+        "flat_j": {"j2": torch.zeros(G * k, dtype=torch.int32)},
+        "sites": {"j1": torch.zeros(G + 1, k, dtype=torch.int32)}}[bad])
+    with pytest.raises(err):
+        kernels.bdg_overlap_check(*args.values())
+
+
+def test_bdg_overlap_twin_matches_jax_past_64():
+    """Past the buckets of bench config 5 (nb = 96, k1 != k2): the twin
+    against the JAX ``_assemble_N_complex`` site by site, on seeded frames
+    (thresh as the JAX function sets it from the padded half size)."""
+    nb, k1, k2 = 96, 20, 12
+    V1h, V2h, j1, j2, _ = testing.random_bdg_overlap_case(7, G=2, nb=nb, k1=k1, k2=k2, x=90)
+    thresh = np.full(2, max(1e-6**nb, 1e-300))
+    N, norm = kernels.bdg_overlap(*(torch.as_tensor(a) for a in (V1h, V2h, j1, j2, thresh)))
+    assert N.shape == (2, k1 + k2, k1 + k2)
+    for g in range(2):
+        V1, V2 = (kernels.nambu_full(torch.as_tensor(v[g])[None])[0].numpy() for v in (V1h, V2h))
+        norm_j, N_j = jpf._assemble_N_complex(jnp.asarray(V1.conj().T @ V2), jnp.asarray(j1[g]),
+                                              jnp.asarray(j2[g]), L=nb, min_SV=1e-6)
+        close(N[g].numpy(), np.asarray(N_j))
+        close(norm[g:g + 1].numpy(), [float(norm_j)])

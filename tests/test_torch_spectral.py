@@ -291,6 +291,59 @@ def test_ritz_twin_matches_jax(side):
     assert 0 in kept and max(kept) > 0, kept
 
 
+@pytest.mark.parametrize("side", ["L", "R"])
+def test_ritz_wrapper_updates_in_place(side):
+    """The K11c wrapper works in place on a CPU tensor too, with the twin's
+    values: "shift" returns T itself, shifted; "select" returns V itself
+    with the dropped columns zero, and the twin's lam_out.  Rows outside a
+    cut's block stay zero (block sizes 0, 1 and L/2 among them)."""
+    rng = np.random.default_rng(5)
+    sizes = torch.as_tensor(np.array([0, 1, L_PIECE // 2, 3], np.int32))
+    m, r = len(sizes), 6
+    blk = kernels.rsf_block_mask(sizes, side, L_PIECE)[:, :, None]
+    U = blk * torch.as_tensor(rng.standard_normal((m, L_PIECE, r)))
+    T = torch.as_tensor(rng.standard_normal((m, r, r)))
+    want = kernels.rsf_ritz_select_plain("shift", U, T, sizes, side=side)
+    got = kernels.rsf_ritz_select("shift", U, T, sizes, side=side)
+    assert got is T and torch.equal(T, want)
+    CV = blk * torch.as_tensor(rng.standard_normal((m, L_PIECE, r))) * 1e-8
+    lam = torch.as_tensor(rng.choice([0.3, 1e-9, 0.5], size=(m, r)))
+    kw = {"side": side, "lam": lam, "lo": 1e-2, "hi": np.inf, "res_tol": 1.0}
+    V = U.clone()
+    Vk, lk = kernels.rsf_ritz_select_plain("select", V, CV, sizes, **kw)
+    got, lam_out = kernels.rsf_ritz_select("select", V, CV, sizes, **kw)
+    assert got is V and torch.equal(V, Vk) and torch.equal(lam_out, lk)
+    dropped = lam_out == spectral.LAM_SENTINEL
+    assert bool(dropped.any()) and bool((~dropped).any())
+    assert float((V * (1 - blk)).abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("case", ["mode", "side", "sizes", "T", "CV", "lam"])
+def test_ritz_wrapper_rejects_bad_arguments(case):
+    """The K11c wrapper's checks, before any device dispatch: the mode, the
+    side, sizes (m,), T (m, r, r) for "shift", and C V (m, L, r) with lam
+    (m, r) for "select"."""
+    m, L, r = 3, 8, 4
+    X = torch.zeros(m, L, r, dtype=torch.float64)
+    sizes = torch.zeros(m, dtype=torch.int32)
+    mode, Y, kw = "select", X.clone(), {"side": "L", "lam": torch.zeros(m, r), "lo": 1e-2,
+                                        "hi": np.inf, "res_tol": 1e-6}
+    if case == "mode":
+        mode = "filter"
+    elif case == "side":
+        kw["side"] = "C"
+    elif case == "sizes":
+        sizes = torch.zeros(m + 1, dtype=torch.int32)
+    elif case == "T":
+        mode, Y = "shift", torch.zeros(m, r, r + 1, dtype=torch.float64)
+    elif case == "CV":
+        Y = torch.zeros(m, L + 1, r, dtype=torch.float64)
+    else:
+        kw["lam"] = None
+    with pytest.raises(ValueError):
+        kernels.rsf_ritz_select(mode, X, Y, sizes, **kw)
+
+
 def test_frames_twin_matches_jax():
     """K11d's twin: the counts and trace check (:236-242), the stable
     ascending ranks with sentinel ties, the placement (:262-283, through the
