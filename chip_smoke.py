@@ -597,13 +597,14 @@ LIBRARY_LABEL = {
     "site_overlap_schur_gmem": "library composition (bmm, lu_factor + lu_solve, baddbmm)",
     "det_rows": "torch.linalg.det on the gathered batches",
     "swap_fill": "torch.linalg.det on the bordered matrices",
+    "swap_tables": "library composition (lu_factor + lu_solve, three bmm)",
 }
-COMPOSITION = ("site_overlap_schur", "site_overlap_schur_gmem")
+COMPOSITION = ("site_overlap_schur", "site_overlap_schur_gmem", "swap_tables")
 """Kernels whose library time is a composition of several calls: printed
 and kept as ``composition_ms``, while the ``kernels`` line's
 ``library_ms`` (one call computing the same function) stays null."""
 REPEATED = ("det_fill", "site_overlap_schur", "site_overlap_schur_gmem", "swap_fill",
-            "det_rows")
+            "det_rows", "swap_tables")
 """Redesigned kernels whose captured groups must also return the same bits
 from a second launch (:func:`check_repeatable`)."""
 
@@ -1164,7 +1165,7 @@ def device_profile(torch, run, label):
     for kernel in ("det_fill_kernel", "site_overlap_kernel", "site_schur_kernel",
                    "fw_frame_slab_kernel", "pf_fill_kernel",
                    "bdg_products_kernel", "bdg_eliminate_kernel", "bdg_eliminate_gmem_kernel",
-                   "swap_tables_kernel",
+                   "swap_inverse_kernel", "swap_inverse_wide_kernel", "swap_products_kernel",
                    "swap_fill_kernel", "det_rows_kernel", "rsf_apply_kernel",
                    "rsf_gram_kernel", "rsf_combine_kernel", "rsf_ritz_shift_kernel",
                    "rsf_ritz_select_kernel", "rsf_frames_stats_kernel",
@@ -2275,11 +2276,39 @@ def swap_fill_library_ms(torch, args, kw):
     return batched_library_ms(torch, range(M.shape[0]), bordered, torch.linalg.det)
 
 
+def swap_tables_library_ms(torch, args, kw):
+    """Milliseconds of the library composition that computes swap_tables'
+    function on the same inputs, each step timed by :func:`cuda_ms`
+    (TIMING_REPS) and summed: torch.linalg.lu_factor_ex (no check: the main
+    path's groups hold singular bases) and lu_solve of the pre-gathered
+    bases against the identity (G; the determinant's diagonal product left
+    out), then torch.bmm for P = M_aug[:, c0] G, T2 = G
+    M_aug[r0, :] and T3 = P M_aug[r0, :] (the gathers made before).  No
+    single call computes K6a, so this is a composition, for reference."""
+    from temfpy_torch.ops.linalg import block_diag_identity_pad
+
+    M, r0, c0 = args
+    E, m, _ = M.shape
+    w = r0.shape[-1]
+    Ma = block_diag_identity_pad(M, w)
+    r, c = r0.long(), c0.long()
+    Mc = torch.gather(Ma, 2, c[:, None, :].expand(E, m + w, w)).contiguous()
+    Mr = torch.gather(Ma, 1, r[:, :, None].expand(E, w, m + w)).contiguous()
+    A = torch.gather(Mr, 2, c[:, None, :].expand(E, w, w)).contiguous()
+    eye = torch.eye(w, dtype=M.dtype, device=M.device).expand(E, w, w).contiguous()
+    ms = cuda_ms(lambda: torch.linalg.lu_solve(*torch.linalg.lu_factor_ex(A)[:2], eye),
+                 TIMING_REPS)
+    G = torch.linalg.lu_solve(*torch.linalg.lu_factor_ex(A)[:2], eye)
+    P = torch.bmm(Mc, G)
+    return ms + sum(cuda_ms(lambda x=x, y=y: torch.bmm(x, y), TIMING_REPS)
+                    for x, y in ((Mc, G), (G, Mr), (P, Mr)))
+
+
 CAPTURED.update({
     "det_rows": ("det_rows", "det_rows_plain", values_err, det_rows_ext, det_rows_cost,
                  det_rows_library_ms),
     "swap_tables": ("swap_tables", "swap_tables_plain", swap_tables_err, swap_tables_ext,
-                    swap_tables_cost, None),
+                    swap_tables_cost, swap_tables_library_ms),
     "swap_fill": ("swap_fill", "swap_fill_plain", values_err, swap_fill_ext, swap_fill_cost,
                   swap_fill_library_ms),
 })
@@ -2451,7 +2480,8 @@ def phase_index_row_ops(torch, np, kernels, testing):
     launches = {"pf_gather": kernels.pf_gather.launches}
     if launches["pf_gather"] <= 0:
         raise AssertionError("phase 3e: pf_gather was not launched")
-    rec = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None}
+    rec = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None,
+           "per_k": {}}
     flops = nbyte = 0.0
     for (N, bra, ket, pad), got in zip(cases, gots):
         ref = opf.batched_pfaffian_gather(torch.as_tensor(N), bra, ket, pad)
@@ -2472,8 +2502,12 @@ def phase_index_row_ops(torch, np, kernels, testing):
         rec["ms"] += t_k
         rec["plain_ms"] += t_p
         rec["bound_ms"] += t_b
+        rec["per_k"][f"k={k} {N.dtype}"] = {"ms": t_k, "cuda_ms": cuda_ms(
+            lambda: kernels.pf_gather(*a, pad), TIMING_REPS), "bound_ms": t_b}
         flops, nbyte = flops + f, nbyte + b
     rec["bound_by"] = bound_ms(flops, nbyte)[1]
+    print(f"phase 3e: pf_gather per k (one call, cuda_ms over {TIMING_REPS}, bound): "
+          f"{json.dumps(rec['per_k'])}", flush=True)
     return launches, {"pf_gather": rec}
 
 

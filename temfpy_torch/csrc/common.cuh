@@ -100,8 +100,8 @@ __device__ __forceinline__ int block_argmax_first(double v, int i) {
     return s_win;
 }
 
-// ---- register-resident small LUs and Pfaffians (det_fill.cu, swap_fill.cu,
-// det_rows.cu, pf_fill.cu) ----
+// ---- register-resident small LUs, inverses and Pfaffians (det_fill.cu,
+// swap_fill.cu, det_rows.cu, swap_tables.cu, pf_fill.cu, pf_gather.cu) ----
 
 constexpr unsigned kFullMask = 0xffffffffu;
 
@@ -231,6 +231,95 @@ __device__ __forceinline__ T pick(const T (&a)[N], int i) {
     for (int q = 1; q < N; ++q)
         if (i == q) v = a[q];
     return v;
+}
+
+// a[i] for a runtime i < N (N a power of two), with constant register
+// indices, by a tree of selects: log2(N) selects deep, not N - 1.
+template <int N, typename T>
+__device__ __forceinline__ T pick_tree(const T (&a)[N], int i) {
+    static_assert((N & (N - 1)) == 0, "N a power of two");
+    T v[N];
+#pragma unroll
+    for (int q = 0; q < N; ++q) v[q] = a[q];
+#pragma unroll
+    for (int s = 1; s < N; s <<= 1)
+#pragma unroll
+        for (int q = 0; q + s < N; q += 2 * s) v[q] = (i & s) ? v[q + s] : v[q];
+    return v[0];
+}
+
+// Determinant and inverse, in place, of the W x W matrix A held one row a
+// lane by a segment of W lanes (W <= 32 a power of two; segment lane / W of
+// its warp): lane sl holds row sl (its original index) in A, at logical
+// position pos (sl at the start; the caller sets it).  Gauss-Jordan with
+// partial pivoting, the rule and arithmetic of
+// temfpy_tpu/ops/linalg.py:gauss_solve_det: the pivot of step k is the first
+// (in logical order) maximal |A[i, k]|, i >= k, found by a segmented shuffle
+// arg-max; the pivot row, published in the segment's shared ``rowbuf`` (W
+// entries), is divided by the pivot one column a lane into ``pk`` (W
+// entries; a zero pivot divides by 1 and gives det 0), and every other row
+// takes a - fac * pk[j].  Rows never move: a pivot swap exchanges two
+// logical positions.  It is the in-place inversion of cluster_gauss_jordan's
+// INVERT mode carried to a segment: the identity half of [A | I] is never
+// stored; at step k the dead column k takes the inverse's column of the
+// pivot row's original index, orig[k] (the pivot lane, kept in the
+// segment's shared ``orig``, W entries), with the operations [A | I] would
+// give it (1 / pivot in the pivot row, 0 - fac (1 / pivot) in the others),
+// so on return A^{-1}[pos, orig[j]] = A[j].  Only the first ``steps`` rows
+// and columns take part (the same in every lane of the warp): the rest must
+// be identity padding, which no step reads.  The padding columns keep pk =
+// 0, so every step updates all W columns without a branch (a branch a
+// column kept the loads of pk from running ahead), and the padding stays
+// exact.  The step loop is not unrolled (column k is picked by pick_tree):
+// one copy of the step's code.  Every lane of the warp calls it; every lane
+// returns det A.
+template <typename T, int W>
+__device__ __forceinline__ T segment_gauss_jordan(T (&A)[W], int& pos, int steps, T* rowbuf,
+                                                  T* pk, int* orig) {
+    static_assert(W <= 32, "one row a lane");
+    const int lane = threadIdx.x & 31, sl = lane % W, seg = lane / W;
+    const unsigned segmask = W == 32 ? kFullMask : (((1u << W) - 1u) << (seg * W));
+    const T one = Num<T>::one(), zero = Num<T>::zero();
+    pk[sl] = zero;
+    __syncwarp();
+    T det = one;
+#pragma unroll 1
+    for (int k = 0; k < steps; ++k) {
+        const T fac = pick_tree(A, k);
+        const bool cand = pos >= k && pos < steps;
+        double bv = cand ? pivot_mag(fac) : -1.0;
+        int bp = cand ? pos : 0x7fffffff;
+#pragma unroll
+        for (int d = W / 2; d > 0; d >>= 1) {
+            const double v2 = __shfl_xor_sync(kFullMask, bv, d, W);
+            const int p2 = __shfl_xor_sync(kFullMask, bp, d, W);
+            if (v2 > bv || (v2 == bv && p2 < bp)) {
+                bv = v2;
+                bp = p2;
+            }
+        }
+        const int src = __ffs(__ballot_sync(kFullMask, pos == bp) & segmask) - 1 - seg * W;
+        const T piv = seg_shfl<W>(fac, src);
+        det = ((bp != k) ? -det : det) * piv;
+        const T safe = Num<T>::is_zero(piv) ? one : piv;
+        const bool is_piv = sl == src;
+        if (is_piv) {
+            orig[k] = src;
+#pragma unroll
+            for (int j = 0; j < W; ++j) rowbuf[j] = A[j];
+        }
+        __syncwarp();
+        if (sl < steps) pk[sl] = sl == k ? one / safe : rowbuf[sl] / safe;
+        __syncwarp();
+#pragma unroll
+        for (int j = 0; j < W; ++j) {
+            const T pj = pk[j];
+            A[j] = is_piv ? pj : (j == k ? zero : A[j]) - fac * pj;
+        }
+        pos = pos == k ? bp : (pos == bp ? k : pos);
+    }
+    __syncwarp();  // orig is complete
+    return det;
 }
 
 // Pfaffian of the W x W skew-symmetric matrix A (W even) held in registers
@@ -407,8 +496,8 @@ __device__ __forceinline__ T warp_lu_det(T* A, int lane, int steps = W) {
 // trailing block takes the rank-2 skew update
 //   A[i, j] += u[i] A[j, k+1] - A[i, k+1] u[j],  u = A[k, :] / A[k, k+1].
 // A zero pivot makes the Pfaffian 0.  A is overwritten; every lane returns
-// the same value.  Used by pf_gather and by pf_fill's pairs of 16 < tot <=
-// 32 (narrower pairs keep their rows in registers: segment_parlett_reid).
+// the same value.  Used by pf_fill's pairs of 16 < tot <= 32 (narrower
+// pairs keep their rows in registers: segment_parlett_reid).
 template <typename T, int W>
 __device__ __forceinline__ T warp_parlett_reid(T* A, T* u, int tot, int lane) {
     constexpr unsigned full = 0xffffffffu;
@@ -814,22 +903,32 @@ __host__ __forceinline__ bool aligned16(const void* p) {
     return reinterpret_cast<unsigned long long>(p) % 16 == 0;
 }
 
-// Launches kernel K with ``smem`` bytes of dynamic shared memory (above 48
-// KB K must be allowed it first: done once per device, since the attribute
-// call costs microseconds, which a small launch would pay every time).
-template <auto K, typename... Args>
-cudaError_t launch_dynamic_smem(dim3 grid, int threads, int smem, cudaStream_t stream,
-                                Args... args) {
+// Allows kernel K ``most`` bytes of dynamic shared memory (above 48 KB K
+// must be allowed it first), once per device: the attribute call costs
+// microseconds, which a small launch would pay every time.  A kernel whose
+// launches differ in size is allowed its largest.
+template <auto K>
+cudaError_t allow_dynamic_smem(int most) {
     static std::atomic<unsigned long long> allowed{0};
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return err;
     const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
     if (!(allowed.load() & bit)) {
-        err = cudaFuncSetAttribute(K, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        err = cudaFuncSetAttribute(K, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
         if (err != cudaSuccess) return err;
         allowed.fetch_or(bit);
     }
+    return cudaSuccess;
+}
+
+// Launches kernel K with ``smem`` bytes of dynamic shared memory, allowed
+// by allow_dynamic_smem at the first launch.
+template <auto K, typename... Args>
+cudaError_t launch_dynamic_smem(dim3 grid, int threads, int smem, cudaStream_t stream,
+                                Args... args) {
+    const cudaError_t err = allow_dynamic_smem<K>(smem);
+    if (err != cudaSuccess) return err;
     K<<<grid, threads, smem, stream>>>(args...);
     return cudaGetLastError();
 }

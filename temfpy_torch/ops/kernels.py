@@ -53,7 +53,9 @@ launches in its ``launches`` attribute (twin calls do not count).
   ``temfpy_tpu/ops/linalg.py:det_swap_tables`` (and its group vmap): per
   (site, class) entry, the base determinant D0, G = A^-1 and the gather
   tables P, T2, T3 of the rank-update fill, and the largest |entry| of G
-  and of the tables (the class pre-screen).
+  and of the tables (the class pre-screen), in two launches (the inverse
+  with A's rows in registers, a lane segment per entry, in place; then
+  the products on a grid of (tile, entry) blocks).
 - :func:`swap_fill` (kernel ``csrc/swap_fill.cu``) replaces
   ``temfpy_tpu/slater.py:_swap_fill_packed_impl`` and
   ``temfpy_tpu/ops/linalg.py:_det_swaps_body`` / ``_det_swaps_vals_impl``
@@ -67,7 +69,9 @@ launches in its ``launches`` attribute (twin calls do not count).
 - :func:`pf_gather` (kernel ``csrc/pf_gather.cu``) replaces
   ``temfpy_tpu/ops/pfaffian.py:_pf_gather_impl``: the Pfaffians of
   ``N_aug[ix, ix]`` with ``ix = concat(ket_idx[j], bra_idx[i])`` for every
-  (i, j).
+  (i, j), in one tier per launch (the width is the same for every pair):
+  a lane segment per pair with its rows in registers up to width 16, a
+  warp per pair with one row a lane in shared memory past it.
 
 - :func:`rsf_apply`, :func:`rsf_tsprod`, :func:`rsf_ritz_select` and
   :func:`rsf_frames` (kernels ``csrc/rsf_apply.cu``, ``rsf_tsprod.cu``,
@@ -983,7 +987,9 @@ def swap_tables(M, r0, c0):
     """Rank-update base tables of E entries (arguments and result as in
     :func:`swap_tables_plain`; on CUDA ``r0``/``c0`` are int32 and w at
     most 64).  CPU tensors run the twin; CUDA tensors launch
-    ``csrc/swap_tables.cu``, one block per entry."""
+    ``csrc/swap_tables.cu``: the inverse on a lane segment per entry (one
+    row a lane in registers; a warp in shared memory past w = 32), then P,
+    T2 and T3 on (tile, entry) blocks spread over the card."""
     dev = M.device
     if dev.type == "cpu":
         return swap_tables_plain(M, r0, c0)
@@ -1234,9 +1240,11 @@ def pf_gather(N, bra_idx, ket_idx, pad_slots: int):
     """All-pairs index-row Pfaffians (arguments as in
     :func:`pf_gather_plain`; on CUDA the index rows are int32, ``N``
     float64 or complex128 and kb + kk even and at most 32).  CPU tensors
-    run the twin; CUDA tensors launch ``csrc/pf_gather.cu``, one warp per
-    pair.  A slot >= m reads the J-block extension ``symplectic_pad``
-    builds, without forming it (``pad_slots`` is not needed there)."""
+    run the twin; CUDA tensors launch ``csrc/pf_gather.cu``: a lane segment
+    per pair with its rows in registers (tiers of width 4, 8, 16), or, at
+    widths 18 to 32, a warp per pair with one row a lane in shared memory.
+    A slot >= m reads the J-block extension ``symplectic_pad`` builds,
+    without forming it (``pad_slots`` is not needed there)."""
     dev = N.device
     if dev.type == "cpu":
         return pf_gather_plain(N, bra_idx, ket_idx, pad_slots)

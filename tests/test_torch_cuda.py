@@ -265,9 +265,14 @@ def test_swap_kernels_match_twins(cuda, s_b, c, spec, dtype):
     assert kernels.swap_tables.launches == t0 + 1 and kernels.swap_fill.launches == f0 + 3
 
 
-@pytest.mark.parametrize("kb,kk", [(3, 1), (4, 4), (10, 6), (20, 12)])
+@pytest.mark.parametrize("kb,kk", [(3, 1), (4, 4), (10, 6), (20, 12), (1, 1), (4, 2), (8, 4),
+                                   (12, 8), (16, 16)])
 @pytest.mark.parametrize("dtype", ["float64", "complex128"])
 def test_pf_gather_kernel_matches_twin(cuda, kb, kk, dtype):
+    """Every tier: k = 2, 4, 6, 8, 12, 16, 20, 32 (register tiers 4, 8, 16
+    and, in float64, 32; complex128 past 16 a warp per pair in shared
+    memory), sentinels at the tail of bra_idx; two launches the same
+    bits."""
     N, bra, ket, pad = testing.random_pf_gather_case(kb, m=48, nb=30, nk=20, kb=kb, kk=kk,
                                                      dtype=dtype)
     a = [torch.as_tensor(x, device=cuda) for x in (N, bra, ket)]
@@ -275,6 +280,174 @@ def test_pf_gather_kernel_matches_twin(cuda, kb, kk, dtype):
     got = kernels.pf_gather(*a, pad)
     assert kernels.pf_gather.launches == before + 1
     assert _rel(got, kernels.pf_gather_plain(*a, pad)) <= RTOL
+    assert torch.equal(_bits(got), _bits(kernels.pf_gather(*a, pad)))
+
+
+@pytest.mark.parametrize("k", [4, 12, 20, 32])
+@pytest.mark.parametrize("dtype", ["float64", "complex128"])
+def test_pf_gather_edge_cases(cuda, k, dtype):
+    """A ket index whose row and column of N are zero (Pf = 0 exactly, as
+    the twin), a sentinel run split across the ket/bra border (the ket row
+    ends in m, the bra row begins with m + 1), a single pair, and 300 x 200
+    pairs (many blocks of every layout)."""
+    kk = k // 2 + 1
+    kb = k - kk
+    N, bra, ket, _pad = testing.random_pf_gather_case(k, m=64, nb=6, nk=4, kb=kb, kk=kk,
+                                                      dtype=dtype)
+    m = N.shape[0]
+    N[5, :] = 0
+    N[:, 5] = 0
+    ket[0, 0] = 5
+    ket[3, -1] = m
+    bra[:, 0] = m + 1
+    bra[bra >= m + 2] = 40  # the generator's tail sentinels: real rows here
+    a = [torch.as_tensor(x, device=cuda) for x in (N, bra, ket)]
+    got = kernels.pf_gather(*a, 2)
+    ref = kernels.pf_gather_plain(*a, 2)
+    assert _rel(got, ref) <= RTOL
+    assert not got[:, 0].any() and not ref[:, 0].any()
+    one = kernels.pf_gather(a[0], a[1][2:3].contiguous(), a[2][3:4].contiguous(), 2)
+    assert tuple(one.shape) == (1, 1) and _rel(one, ref[2:3, 3:4]) <= RTOL
+    N, bra, ket, pad = testing.random_pf_gather_case(k + 1, m=64, nb=300, nk=200, kb=kb, kk=kk,
+                                                     dtype=dtype)
+    a = [torch.as_tensor(x, device=cuda) for x in (N, bra, ket)]
+    assert _rel(kernels.pf_gather(*a, pad), kernels.pf_gather_plain(*a, pad)) <= RTOL
+
+
+def _swap_tables_case(seed, E, w, dtype, singular=()):
+    """E entries of base width w over m = min(64, w + 6) sometimes widths,
+    a few sentinel columns at the base's tail from w = 9 on; the entries in
+    ``singular`` get a zero column of M in their base (D0 = 0)."""
+    rng = np.random.default_rng(seed)
+    m = min(64, w + 6)
+    c = w if w <= 8 else w - 3
+    M = rng.normal(size=(E, m, m))
+    if dtype == "complex128":
+        M = M + 1j * rng.normal(size=(E, m, m))
+
+    def base():
+        return np.stack([np.concatenate([np.sort(rng.choice(m, c, replace=False)),
+                                         m + np.arange(w - c)]) for _ in range(E)])
+
+    r0, c0 = base().astype(np.int32), base().astype(np.int32)
+    for e in singular:
+        M[e][:, c0[e, 0]] = 0
+    return M, r0, c0
+
+
+def _swap_tables_ld(M, r0, c0):
+    """(D0, G, P, T2, T3) of one entry in x87 extended precision: the
+    Gauss-Jordan of [A | I] with the first maximal pivot, then the
+    products."""
+    Ml = M.cpu().numpy()
+    ld = np.clongdouble if np.iscomplexobj(Ml) else np.longdouble
+    m, w = Ml.shape[0], len(r0)
+    Ma = np.eye(m + w, dtype=ld)
+    Ma[:m, :m] = Ml
+    r, c = r0.cpu().numpy(), c0.cpu().numpy()
+    AB = np.concatenate([Ma[np.ix_(r, c)], np.eye(w, dtype=ld)], axis=1)
+    det = ld(1)
+    for k in range(w):
+        p = k + int(np.argmax(np.abs(AB[k:, k])))
+        AB[[k, p]] = AB[[p, k]]
+        det = (-det if p != k else det) * AB[k, k]
+        row = AB[k] / (AB[k, k] if AB[k, k] != 0 else 1)
+        f = AB[:, k].copy()
+        f[k] = 0
+        AB -= f[:, None] * row[None, :]
+        AB[k] = row
+    G = AB[:, w:]
+    P = Ma[:, c] @ G
+    return det, G, P, G @ Ma[r, :], P @ Ma[r, :]
+
+
+def _swap_tables_held(got, ref, M, r0, c0):
+    """Each entry's D0, G, P, T2, T3 within RTOL of the twin's (relative to
+    the output's largest entry there).  Where float64 rounding parts them
+    further (an ill-conditioned base: the kernel's fused multiply-adds, the
+    twin's separate ones), kernel and twin are each held against an
+    extended-precision evaluation within the forward-error bound of a
+    pivoted elimination, w cond(A) 2^-52 relative: neither is the
+    reference there (on entry 20 of the float64 w = 64 case, cond 1.4e7,
+    the kernel's error is 5.5e-10 and the twin's 7.3e-11, both under the
+    bound's 2e-7)."""
+    w = r0.shape[-1]
+    for e in range(M.shape[0]):
+        pairs = [(x[e], y[e]) for x, y in zip(got[:5], ref[:5])]
+        if max(_rel(x, y) for x, y in pairs) <= RTOL:
+            continue
+        want = _swap_tables_ld(M[e], r0[e], c0[e])
+        Ma = np.eye(M.shape[-1] + w, dtype=M.cpu().numpy().dtype)
+        Ma[: M.shape[-1], : M.shape[-1]] = M[e].cpu().numpy()
+        bound = w * np.linalg.cond(Ma[np.ix_(r0[e].cpu().numpy(), c0[e].cpu().numpy())]) * 2.0**-52
+
+        def err(outs):
+            return max(float(np.abs(o.cpu().numpy() - r).max()) / max(float(np.abs(r).max()),
+                                                                       1e-300)
+                       for o, r in zip(outs, want))
+
+        assert err([x for x, _ in pairs]) <= bound and err([y for _, y in pairs]) <= bound, e
+
+
+@pytest.mark.parametrize("w", [1, 8, 24, 32, 33, 64])
+@pytest.mark.parametrize("E", [1, 300])
+@pytest.mark.parametrize("dtype", ["float64", "complex128"])
+def test_swap_tables_every_width(cuda, w, E, dtype):
+    """K6a at base widths 1 to 64 (register tiers 8, 16, 32, a warp in
+    shared memory past 32), one entry and 300 (products over many blocks),
+    a singular base (D0 = 0 exactly, its row left unscaled as the twin
+    leaves it): each entry held as :func:`_swap_tables_held` says, max|G| and
+    the tables' max equal to the outputs' own, the pre-screen verdicts the
+    twin's, two launches the same bits."""
+    singular = (0,) if E == 1 else (7, 150)
+    M, r0, c0 = _swap_tables_case(w * E, E, w, dtype, singular)
+    a = [torch.as_tensor(x, device=cuda) for x in (M, r0, c0)]
+    before = kernels.swap_tables.launches
+    got = kernels.swap_tables(*a)
+    assert kernels.swap_tables.launches == before + 1
+    ref = kernels.swap_tables_plain(*a)
+    _swap_tables_held(got, ref, *a)
+    for e in singular:
+        assert float(got[0][e].abs()) == 0 and float(ref[0][e].abs()) == 0
+    # the kernel's |z| is hypot, torch's may round otherwise in the last bit
+    assert _rel(got[5], got[1].abs().flatten(1).amax(1)) <= RTOL
+    assert _rel(got[6], torch.stack([t.abs().flatten(1).amax(1) for t in got[2:5]]).amax(0)
+                ) <= RTOL
+
+    def verdict(t):
+        return (t[0].abs() < 1e-12) | (torch.maximum(t[5], t[6]) > slater._SWAP_GMAX)
+
+    assert torch.equal(verdict(got), verdict(ref))
+    again = kernels.swap_tables(*a)
+    assert all(torch.equal(_bits(x), _bits(y)) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("c", [5, 20, 30, 33, 60])
+@pytest.mark.parametrize("fail", [False, True])
+def test_swap_probe_failing_class_every_width(cuda, c, fail):
+    """testing.random_swap_case's probe-failing class (and its plain twin
+    class) at base widths w_b = 8, 24, 32, 40, 64: on the card the tables
+    pass the pre-screen, and the probe (swap_fill values against det_rows'
+    direct values) fails exactly where the twins' does."""
+    M, r0, c0, args, kw, (ib, ik) = testing.random_swap_case(
+        c, U=2, m=c + 14, c=c, s_b=4 if c >= 8 else 2, n_rows=40, P=1200, spec="rrc",
+        fail_probe=fail)
+    (Mm, det, Rin, Rout, Rpos, sgr, Cin, Cout, Cpos, sgc, pr, pc, _tabs, chk) = args
+    up = lambda x: torch.as_tensor(x, device=cuda)  # noqa: E731
+    verdicts = []
+    for tables, fill, rows in ((kernels.swap_tables, kernels.swap_fill, kernels.det_rows),
+                               (kernels.swap_tables_plain, kernels.swap_fill_plain,
+                                kernels.det_rows_plain)):
+        tab = tables(up(M), up(r0), up(c0))
+        screen = float(tab[0].abs().min()) >= 1e-12 and float(
+            torch.maximum(tab[5], tab[6]).max()) <= slater._SWAP_GMAX
+        sw = fill(up(Mm), up(det), *tab[:5], *(up(x) for x in (
+            Rin, Rout, Rpos, sgr, Cin, Cout, Cpos, sgc)), up(np.take_along_axis(pr, chk, 1)),
+            up(np.take_along_axis(pc, chk, 1)), s_b=kw["s_b"])
+        dr = rows(up(Mm), up(ib), up(ik), up(det))
+        verdicts.append((screen, [slater._probe_ok([(sw[u].cpu().numpy(), dr[u].cpu().numpy())])
+                                  for u in range(2)]))
+    assert verdicts[0] == verdicts[1] == (True, [not fail] * 2)
 
 
 def test_new_kernels_reject_what_they_do_not_take(cuda):

@@ -106,6 +106,41 @@ def test_det_swap_tables_and_body_match_jax_and_numpy():
     np.testing.assert_allclose(body, body_ref, rtol=1e-9, atol=1e-12)
 
 
+@pytest.mark.parametrize("w", [1, 8, 24, 32, 33, 64])
+@pytest.mark.parametrize("dtype", [np.float64, np.complex128])
+def test_swap_tables_twin_matches_jax_at_edge_widths(w, dtype):
+    """The swap_tables twin (E = 2 entries) against the JAX package's
+    det_swap_tables at base widths 1 to 64 (the kernel's register tiers 8,
+    16, 32 and its shared-memory path past 32), a few sentinel columns at
+    the tail of a wider base, and a singular base in entry 1 (a zero column
+    of M: D0 = 0, its pivot row left unscaled, as gauss_solve_det leaves
+    it): each output within 1e-12 of its largest entry; max|G| and the
+    tables' max as the twin's outputs give them."""
+    rng = np.random.default_rng(w)
+    m = min(64, w + 6)
+    c = w if w <= 8 else w - 3  # real base positions; the rest sentinels
+    M = rng.normal(size=(2, m, m))
+    if dtype is np.complex128:
+        M = M + 1j * rng.normal(size=(2, m, m))
+    r0 = np.stack([np.concatenate([np.sort(rng.choice(m, c, replace=False)),
+                                   m + np.arange(w - c)]) for _ in range(2)]).astype(np.int32)
+    c0 = np.stack([np.concatenate([np.sort(rng.choice(m, c, replace=False)),
+                                   m + np.arange(w - c)]) for _ in range(2)]).astype(np.int32)
+    M[1][:, c0[1, 0]] = 0
+    T = torch.as_tensor
+    tw = kernels.swap_tables(T(M), T(r0), T(c0))
+    assert float(tw[0][1]) == 0
+    for e in range(2):
+        M_aug = np.asarray(jlin.block_diag_identity_pad(jnp.asarray(M[e]), w))
+        ref = jlin.det_swap_tables(jnp.asarray(M_aug), jnp.asarray(r0[e]), jnp.asarray(c0[e]))
+        for g, r in zip(tw[:5], ref):
+            r = np.asarray(r)
+            np.testing.assert_allclose(g[e].numpy(), r, rtol=0,
+                                       atol=1e-12 * max(np.abs(r).max(), 1e-300))
+        assert float(tw[5][e]) == float(tw[1][e].abs().max())
+        assert float(tw[6][e]) == max(float(t[e].abs().max()) for t in tw[2:5])
+
+
 @pytest.mark.parametrize("s_b,c,spec,dtype", [(1, 5, "rc", np.float64),
                                               (2, 6, "rrc", np.complex128),
                                               (4, 12, "crr", np.float64),

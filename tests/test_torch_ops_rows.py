@@ -142,6 +142,54 @@ def test_pfaffian_gather_seeded_matches_jax(dtype, kb, kk, chunk):
     assert np.abs(got).max() > 1e-3
 
 
+@pytest.mark.parametrize("dtype,kb,kk,chunk", [(np.float64, 1, 1, None),
+                                               (np.complex128, 12, 8, None),
+                                               (np.float64, 20, 12, None),
+                                               (np.complex128, 16, 16, 4)])
+def test_pfaffian_gather_edge_widths_match_jax(dtype, kb, kk, chunk):
+    """Widths 2, 20 and 32 (the kernel's narrowest tier, and past 16, where
+    complex128 keeps its rows in shared memory): against the JAX package
+    within 1e-12 of the largest |Pf| (at k = 32 the Pfaffians of these
+    O(m^-1/2) entries are ~1e-9, so the absolute TOL says nothing)."""
+    N, bra, ket, pad = testing.random_pf_gather_case(kb + kk, m=64, nb=6, nk=5, kb=kb, kk=kk,
+                                                     dtype=dtype)
+    want = np.asarray(jpf.batched_pfaffian_gather(jnp.asarray(N), bra, ket, pad_slots=pad,
+                                                  chunk=chunk))
+    got = tpf.batched_pfaffian_gather(torch.as_tensor(N), bra, ket, pad, chunk=chunk).numpy()
+    assert got.shape == (6, 5)
+    scale = np.abs(want).max()
+    assert scale > 0 and np.abs(got - want).max() <= TOL * scale
+    assert len(np.unique(np.round(np.abs(got) / scale, 6))) > 10
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.complex128])
+def test_pfaffian_gather_zero_column_and_split_run_match_jax(dtype):
+    """A ket row holding an index whose row and column of N are zero (Pf = 0
+    exactly) and a sentinel run split across the ket/bra border (ket ends
+    in m, bra begins with m + 1): against the JAX package and numpy."""
+    N, bra, ket, _pad = testing.random_pf_gather_case(9, m=32, nb=4, nk=3, kb=5, kk=3,
+                                                      dtype=dtype)
+    m = N.shape[0]
+    N[3, :] = 0
+    N[:, 3] = 0
+    ket[0, 0] = 3
+    ket[2, 2] = m
+    bra[:, 0] = m + 1
+    bra[:, 1:] = np.sort(bra[:, 1:], axis=1)
+    bra[bra >= m + 2] = 20  # the generator's tail sentinels: real rows here
+    want = np.asarray(jpf.batched_pfaffian_gather(jnp.asarray(N), bra, ket, pad_slots=2))
+    got = tpf.batched_pfaffian_gather(torch.as_tensor(N), bra, ket, 2).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
+    assert not got[:, 0].any()
+    for i in range(4):
+        ix = list(ket[2]) + list(bra[i])
+        Na = np.zeros((m + 2, m + 2), dtype=N.dtype)
+        Na[:m, :m] = N
+        Na[m, m + 1], Na[m + 1, m] = 1, -1
+        np.testing.assert_allclose(got[i, 2], jpf.pfaffian_numpy(Na[np.ix_(ix, ix)]), rtol=0,
+                                   atol=1e-10)
+
+
 def test_pfaffian_gather_empty_and_odd():
     N = torch.zeros((4, 4), dtype=torch.complex128)
     np.testing.assert_array_equal(
