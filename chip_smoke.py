@@ -49,8 +49,8 @@ Phases, each printing a line; any failure raises and exits non-zero:
    counted here);
 4c. FW parity: ``slater.C_to_MPS`` at L=768 (W=8, chi=48) through the
    Fishman-White frontend forced on (``TEMFPY_TORCH_FW=1``; its default is
-   off) on the card, against the card's exact frontend and against the
-   CPU's FW conversion (twins);
+   off) on the card against the card's exact frontend, every K1/K2 group
+   held; at L=24 the card's FW conversion against the CPU's (twins);
 4d. BdG past nb = 64: p+ip W=4, Lx=40 (L=160) on the card and the CPU;
 4e. the rank-update path forced on (``TEMFPY_TORCH_DET_UPDATES=1``) on the
    card against the CPU: the W=8, L=32 cylinder (chi=96) and the pi-flux
@@ -79,11 +79,23 @@ Phases, each printing a line; any failure raises and exits non-zero:
    frontend, every kernel call of three main-path chunks (one per side
    whose cuts are rerouted, one whose cuts are kept) held against its twin,
    the state against phase 7's exact states (clean and disordered), and
-   both frontends' times.
+   both frontends' times;
+10. Gutzwiller projection (bench config 4): ``gutzwiller.abrikosov_ph`` of
+   ``slater.H_to_MPS(..., spinful="PH")`` on the pi-flux W=4, Lx=8
+   cylinder (chi=128) on the card and the CPU; at full width on the W=8,
+   Lx=16 cylinder (chi=512, 256 fermionic sites), cold and warm, every
+   K1/K2 group held, the projected state canonical; the infinite branch
+   (``slater.H_to_iMPS(..., spinful="PH")``, ``abrikosov_ph``,
+   ``canonical_form_infinite`` with its ARPACK fallbacks counted);
+11. iMPS (bench config 3): ``slater.H_to_iMPS`` of the dimerized chain
+   (L=128, chi=64) on the card and the CPU with splice reconstructions; at
+   full width on bench config 1's W=8 cylinder (chi=512) and the
+   ``pfaffian.H_to_iMPS`` of bench config 5's p+ip cylinder (chi=256),
+   kernels against twins on the card.
 
 Phases 3e, 5, 6, 7, 8 and 9 set their kernels' launch counts to 0 just
-before their main-path run and read them just after (4c, 4d, 4e and 4f
-check that theirs launched).  The phases of the earlier slices run the direct fill
+before their main-path run and read them just after (4c, 4d, 4e, 4f, 10
+and 11 set theirs to 0 and check that they launched).  The phases of the earlier slices run the direct fill
 on both devices (``TEMFPY_TORCH_DET_UPDATES=0``; the CPU's default is the
 rank-update path).  The second-to-last line
 is a JSON object with one record per kernel: its launches in its slice's
@@ -169,8 +181,9 @@ CARD_KERNEL_TOL = 1e-5
 """Phase 4c, the card state with the kernels against the CPU's (twins,
 one FW sweep): 1 - fidelity.  Kernel and twin round the same
 ill-conditioned fill groups differently (every group is held against
-extended precision), and the states then part by 1.0e-6 on an H100
-(PERF.md, Findings); 1e-5 leaves a 10x margin."""
+extended precision); at L=768 the states parted by 1.0e-6 on an H100
+(PERF.md, Findings), so 1e-5 leaves a 10x margin there, and more at
+FW_PARITY_L, where the check runs now."""
 SLICE_BOUNDS = {"weighted_residual": 1e-2, "n": 3e-2}
 """Phase 7, bench config 1 at L=1024, chi=512: bounds on what the chi
 truncation moves, set from the H100 reading of the FW state (centre
@@ -1391,19 +1404,40 @@ def phase_pf_kernels(torch, kernels, testing):
     return worst
 
 
-def spectra_diff(np, a, b, label_gauge=False):
+def spectra_diff(np, a, b, label="", qtotal=False):
     """(max Schmidt-value difference, max squared-Schmidt-value difference)
-    per bond and parity between two MPS with identical bond labels."""
+    per bond and charge (or parity) between two MPS, finite or infinite,
+    with identical bond labels and, with ``qtotal``, identical tensor
+    charges.  The per-charge squared values are what
+    ``entanglement_spectrum(by_charge=True)`` lists (as -log S^2)."""
     d1 = d2 = 0.0
     for bnd in range(a.L + 1):
         qa, qb = a.q_bond[bnd], b.q_bond[bnd]
         if not np.array_equal(qa, qb):
-            raise AssertionError(f"bond {bnd}: parities differ")
+            raise AssertionError(f"{label}: bond {bnd}: charge labels differ")
         for q in np.unique(qa):
             sa, sb = np.sort(a.get_SL(bnd)[qa == q]), np.sort(b.get_SL(bnd)[qb == q])
             d1 = max(d1, float(np.abs(sa - sb).max()))
             d2 = max(d2, float(np.abs(sa**2 - sb**2).max()))
+    if qtotal and not np.array_equal(a.qtotal, b.qtotal):
+        raise AssertionError(f"{label}: tensor charges differ")
     return d1, d2
+
+
+def padded_spectra_diff(np, a, b):
+    """Max squared-Schmidt-value difference per bond and charge between two
+    MPS whose labels may differ in length: each sector's values sorted in
+    descending order, the shorter padded with zeros."""
+    d = 0.0
+    for bnd in range(a.L + 1):
+        qa, qb = a.q_bond[bnd], b.q_bond[bnd]
+        for q in np.union1d(qa, qb):
+            sa = np.sort(a.get_SL(bnd)[qa == q] ** 2)[::-1]
+            sb = np.sort(b.get_SL(bnd)[qb == q] ** 2)[::-1]
+            n = max(len(sa), len(sb))
+            d = max(d, float(np.abs(np.pad(sa, (0, n - len(sa)))
+                                    - np.pad(sb, (0, n - len(sb)))).max()))
+    return d
 
 
 def phase_pf_parity(torch, np, pfaffian, testing):
@@ -1754,25 +1788,33 @@ def with_det_updates(mode, fn):
     return with_env("TEMFPY_TORCH_DET_UPDATES", mode, fn)
 
 
-def phase_fw_parity(torch, np, slater, fw, kernels):
-    """Phase 4c: the FW frontend at its auto-on scale, L = 768 on the W=8
-    gapped cylinder with the seeded 1e-3 disorder of tests/test_fw.py:126-148
-    (chi=48, svd_min=1e-5).
+FW_PARITY_L = 24
+"""Phase 4c's card-against-CPU FW parity: the W=8 cylinder at L=24, the
+smallest length at which chi=48 binds as it does at L=768 (FW runs forced
+on at every L).  At L=768 the CPU conversion, the card run with the twins
+and the <c^dag c> rows (O(L^2) environment steps on two states) took
+22.1, 15.9 and about 131 s on an H100 (PERF.md section 7)."""
 
-    - The card with FW (forced on, TEMFPY_TORCH_FW=1; K9 and the wide-site
-      K2 counted) against the card's exact frontend (the default):
-      FW_EXACT_TOL.
-    - The GPU path against the CPU's (FW forced on, the twins): the card run
-      with the K1/K2 twins on the card, PARITY_TOL on fidelity, squared
-      Schmidt values and normalised <c^dag c> rows, charges equal.  Both FW
-      runs convert the same host array, so they share one sweep.
-    - The K1/K2 kernels against their twins on EVERY group of the card run,
-      with phase 5's extended-precision rule for ill-conditioned groups:
-      this state has always blocks with |det| down to 1e-48, where float64
-      rounding alone parts kernel and twin.  The card state with the
-      kernels then parts from the CPU's by more than PARITY_TOL; it is held
-      to CARD_KERNEL_TOL, and the sites where kernels and twins part most
-      are printed (every group holding them has passed the check above)."""
+
+def phase_fw_parity(torch, np, slater, fw, kernels):
+    """Phase 4c: the FW frontend on the W=8 gapped cylinder with the seeded
+    1e-3 disorder of tests/test_fw.py:126-148 (chi=48, svd_min=1e-5).
+
+    - At L = 768, its auto-on scale: the card with FW (forced on,
+      TEMFPY_TORCH_FW=1; K9 and the wide-site K2 counted) against the
+      card's exact frontend (the default): FW_EXACT_TOL; and the K1/K2
+      kernels against their twins on EVERY group of the card FW run, with
+      phase 5's extended-precision rule for ill-conditioned groups (this
+      state has always blocks with |det| down to 1e-48, where float64
+      rounding alone parts kernel and twin).
+    - At L = FW_PARITY_L: the GPU path against the CPU's (FW forced on, the
+      twins): the card run with the K1/K2 twins on the card, PARITY_TOL on
+      fidelity, squared Schmidt values and normalised <c^dag c> rows,
+      charges equal (all FW runs of one length convert the same host array,
+      so they share one sweep); the card state with the kernels against the
+      CPU's at CARD_KERNEL_TOL, and the sites where kernels and twins part
+      most printed."""
+    parts = {}
     L = 768
     H = cylinder(8, L)  # the JAX FW test's cylinder (tests/test_fw.py:24-41)
     H += np.diag(1e-3 * np.random.default_rng(3).normal(size=L))
@@ -1784,7 +1826,7 @@ def phase_fw_parity(torch, np, slater, fw, kernels):
     with slater_capture(slater, fw, every=("det_fill", "site_overlap_schur")) as cap:
         gpu = with_fw_mode("1", lambda: slater.C_to_MPS(C, tp, device="cuda"))
         torch.cuda.synchronize()
-    t_fw = time.perf_counter() - t0
+    parts["card FW"] = time.perf_counter() - t0
     launches = {"fw_frame_slab": kernels.fw_frame_slab.launches,
                 "site_overlap_schur_gmem": kernels.site_overlap_schur_gmem.launches}
     if fw._CACHE[-1][1] is None:
@@ -1795,32 +1837,43 @@ def phase_fw_parity(torch, np, slater, fw, kernels):
     t0 = time.perf_counter()
     exact = slater.C_to_MPS(C, tp, device="cuda")
     torch.cuda.synchronize()
-    t_ex = time.perf_counter() - t0
+    parts["card exact"] = time.perf_counter() - t0
+    f_ex = fidelity(np, gpu, exact)
+    print(f"phase 4c: W=8 L={L} chi=48 svd_min=1e-5, launches {launches}: FW vs exact 1 - "
+          f"fidelity {1 - f_ex:.3e}", flush=True)
+    if not 1 - f_ex <= FW_EXACT_TOL:
+        raise AssertionError(f"phase 4c: FW vs exact 1 - fidelity {1 - f_ex:.3e} > {FW_EXACT_TOL}")
+    del gpu, exact
     t0 = time.perf_counter()
+    hold_every(torch, kernels, "phase 4c", cap)
+    fw_captured(torch, kernels, "phase 4c", cap["slabs"])
+    parts["holds"] = time.perf_counter() - t0
+    del cap
+
+    t0 = time.perf_counter()
+    L = FW_PARITY_L
+    H = cylinder(8, L)
+    H += np.diag(1e-3 * np.random.default_rng(3).normal(size=L))
+    C = slater.correlation_matrix(H, device="cuda")[0].cpu().numpy()
+    fw.fw_clear_cache()
+    gpu = with_fw_mode("1", lambda: slater.C_to_MPS(C, tp, device="cuda"))
+    if fw._CACHE[-1][1] is None:
+        raise AssertionError(f"phase 4c: the FW sweep fell back at L={L}")
     cpu = with_fw_mode("1", lambda: slater.C_to_MPS(C, tp, device="cpu"))
-    t_cpu = time.perf_counter() - t0
-    fill, overlap = slater.det_fill, slater.site_overlap_schur
-    slater.det_fill, slater.site_overlap_schur = (kernels.det_fill_plain,
-                                                  kernels.site_overlap_schur_plain)
-    try:
+    with patched(slater, det_fill=kernels.det_fill_plain,
+                 site_overlap_schur=kernels.site_overlap_schur_plain):
         twins = with_fw_mode("1", lambda: slater.C_to_MPS(C, tp, device="cuda"))
-    finally:
-        slater.det_fill, slater.site_overlap_schur = fill, overlap
-    fid = lambda a, b: abs(a.overlap(b)) / np.sqrt(a.norm_squared() * b.norm_squared())  # noqa
-    f_ex, f_cpu, f_twin = fid(gpu, exact), fid(gpu, cpu), fid(twins, cpu)
+    f_cpu, f_twin = fidelity(np, gpu, cpu), fidelity(np, twins, cpu)
     d_sv, d_w = spectra_diff(np, twins, cpu)
     sites = [0, L // 4, L // 2, 3 * L // 4, L - 1]
     cdc = [m.correlation_function("Cd", "C", sites1=sites) / m.norm_squared()
            for m in (twins, cpu)]
     d_cdc = float(np.abs(cdc[0] - cdc[1]).max())
-    print(f"phase 4c: W=8 L={L} chi=48 svd_min=1e-5, launches {launches}: card FW {t_fw:.2f} s, "
-          f"card exact {t_ex:.2f} s, cpu FW {t_cpu:.2f} s; FW vs exact 1 - fidelity "
-          f"{1 - f_ex:.3e}; card (twins) vs cpu 1 - fidelity {1 - f_twin:.3e}, max "
-          f"squared-Schmidt diff {d_w:.3e} (values {d_sv:.3e}), charges identical, normalised "
-          f"<c^dag c> rows {sites} diff {d_cdc:.3e}; card (kernels) vs cpu 1 - fidelity "
-          f"{1 - f_cpu:.3e}", flush=True)
-    if not 1 - f_ex <= FW_EXACT_TOL:
-        raise AssertionError(f"phase 4c: FW vs exact 1 - fidelity {1 - f_ex:.3e} > {FW_EXACT_TOL}")
+    parts[f"parity at L={L}"] = time.perf_counter() - t0
+    print(f"phase 4c: W=8 L={L} chi=48 (chi_max {gpu.chi_max}): card (twins) vs cpu 1 - fidelity "
+          f"{1 - f_twin:.3e}, max squared-Schmidt diff {d_w:.3e} (values {d_sv:.3e}), charges "
+          f"identical, normalised <c^dag c> rows {sites} diff {d_cdc:.3e}; card (kernels) vs "
+          f"cpu 1 - fidelity {1 - f_cpu:.3e}", flush=True)
     if not (1 - f_twin <= PARITY_TOL and d_w <= PARITY_TOL and d_cdc <= PARITY_TOL):
         raise AssertionError(f"phase 4c: card and CPU FW conversions differ beyond {PARITY_TOL}")
     if not 1 - f_cpu <= CARD_KERNEL_TOL:
@@ -1833,16 +1886,7 @@ def phase_fw_parity(torch, np, slater, fw, kernels):
     worst_sites = sorted(part, key=part.get, reverse=True)[:4]
     print("phase 4c: sites where the kernels' and the twins' tensors part most (rel):",
           {i: f"{part[i]:.3e}" for i in worst_sites}, flush=True)
-    held = Counter()
-    for name, key, (args, kw) in cap["every"]:
-        if name == "site_overlap_schur" and not kernels.site_overlap_fits_smem(key[1],
-                                                                               args[0].dtype):
-            name = "site_overlap_schur_gmem"
-        hold(torch, kernels, "phase 4c", name, key, args, kw)
-        held[name] += 1
-    print(f"phase 4c: every group of the card run held against its twin: {dict(held)}",
-          flush=True)
-    fw_captured(torch, kernels, "phase 4c", cap["slabs"])
+    print("phase 4c: seconds per part", {k: round(v, 2) for k, v in parts.items()}, flush=True)
 
 
 def phase_pf_gmem_parity(torch, np, pfaffian, kernels, testing):
@@ -3115,6 +3159,377 @@ def phase_rsf_slice(torch, np, slater, fw, kernels, profiling, spectral, ph7):
     return res["launches"], rec
 
 
+# --------------------------------------------------------------------------
+# Gutzwiller projection and iMPS (bench configs 3 and 4)
+# --------------------------------------------------------------------------
+
+
+CANONICAL_IMPS_TOL = 1e-5
+"""Phase 10, the projected iMPS: sum_n B B^H = I per tensor, the tolerance
+of tests/test_spinful_imps.py:73 (the infinite canonical form stops at a
+transfer-map residual of 1e-9 and its power iteration at 1e-13 on a
+chi^2-dimensional fixed point)."""
+
+
+SPIN_SPECTRUM_TOL = 2e-8
+"""Phase 10, config 4's spin MPS card vs CPU: squared Schmidt values per Sz
+sector.  The sorted spectra of two reduced density matrices differ by at
+most the norm of their difference, which is first order in the difference
+of the two states, while 1 - fidelity is second order: a fermionic
+difference that float64 fidelities cannot resolve (1 - F ~ 1e-14, a state
+difference up to ~1e-7) moves the spin spectra of config 4 by ~1e-9.  Phase
+10 prints a control beside the reading: two sound CPU conversions whose
+Hamiltonians differ by one ulp (seeded), projected; the bound is about three
+times the largest control reading (PERF.md section 5)."""
+
+
+def fidelity(np, a, b):
+    """|<a|b>| / sqrt(<a|a> <b|b>) of two finite MPS."""
+    return abs(a.overlap(b)) / np.sqrt(a.norm_squared() * b.norm_squared())
+
+
+def error_diff(a, b):
+    """Max difference of the squared iMPSError fields: each field is the
+    root of a difference of O(1) sums, so at rounding level its root
+    amplifies the summation order; the squares compare at PARITY_TOL."""
+    return max(abs(x * x - y * y) for x, y in zip(a, b))
+
+
+def hold_every(torch, kernels, label, cap):
+    """Every K1/K2 group the capture kept in ``every``, against its twin
+    (:func:`hold`); returns the worst absolute difference per kernel."""
+    held, worst = Counter(), Counter()
+    for name, key, (args, kw) in cap["every"]:
+        if name == "site_overlap_schur" and not kernels.site_overlap_fits_smem(key[1],
+                                                                               args[0].dtype):
+            name = "site_overlap_schur_gmem"
+        _rel, ab, _ext = hold(torch, kernels, label, name, key, args, kw)
+        held[name] += 1
+        worst[name] = max(worst[name], ab)
+    print(f"{label}: every K1/K2 group of the card run held against its twin: {dict(held)}",
+          flush=True)
+    return worst
+
+
+def imps_checks(torch, np, imps, label):
+    """A canonical iMPS: right-canonical tensors (CANONICAL_IMPS_TOL),
+    normalised Schmidt values, a consistent wrap bond (a constant drift per
+    cell) and the charge rule on every tensor.  Returns the worst
+    canonicality residual."""
+    res = max(canonical_residuals(torch, imps, i)[0] for i in range(imps.L))
+    for i, B in enumerate(imps._B):
+        qL = torch.as_tensor(imps.q_bond[i], device=B.device)[:, None, None]
+        qp = torch.as_tensor(imps.sites[i].charges, device=B.device)[None, :, None]
+        qR = torch.as_tensor(imps.q_bond[i + 1], device=B.device)[None, None, :]
+        bad = (qL + qp - qR) != int(imps.qtotal[i])
+        if float((B.abs() * bad).max()) > 1e-10:
+            raise AssertionError(f"{label}: tensor {i} violates its charge rule")
+    dq = imps.q_bond[imps.L] - imps.q_bond[0]
+    s_norm = max(abs(np.linalg.norm(S) - 1) for S in imps._S)
+    if not (res <= CANONICAL_IMPS_TOL and s_norm <= 1e-8 and dq.size and np.all(dq == dq[0])):
+        raise AssertionError(f"{label}: canonicality residual {res:.3e}, Schmidt norm error "
+                             f"{s_norm:.3e}, wrap drift {np.unique(dq)}")
+    return res
+
+
+def phase_gutzwiller(torch, np, slater, gutzwiller, fw, kernels):
+    """Phase 10: Gutzwiller projection (bench config 4, bench.py:181-212).
+
+    - Config 4 itself: the pi-flux cylinder W=4, Lx=8 with the 1e-4
+      diag(arange(L)) split, chi=128, ``slater.H_to_MPS(..., spinful="PH")``
+      then ``gutzwiller.abrikosov_ph`` on the card and on the CPU (twins):
+      PARITY_TOL on the spin MPS's fidelity, SPIN_SPECTRUM_TOL on its
+      squared Schmidt values per Sz sector (what
+      ``entanglement_spectrum(by_charge=True)`` lists), with two CPU
+      controls printed beside the reading; equal Sz bond labels.
+    - Full width: the W=8, Lx=16 pi-flux cylinder at chi=512 (256
+      fermionic sites -> 128 spin sites, the fermionic size of bench config
+      1 at L=256) on the card, cold and warm, the conversion and the
+      projection timed on their own, the K1/K2 launches of the cold run,
+      every K1/K2 group of the warm run held against its twin, the peak
+      memory, and the projected state's norm and canonical residuals at
+      sites 0, L/2, L-1 (its ``canonical_form_finite`` ran inside the
+      projection).
+    - The infinite branch: ``slater.H_to_iMPS(..., spinful="PH")`` on config
+      4's cylinder, one ring a cell (L_short=32, cut=16), chi=128, then
+      ``abrikosov_ph`` and its ``canonical_form_infinite``, whose ARPACK
+      fallbacks, matvecs and failures are printed (a failure raises):
+      right-canonical tensors, normalised Schmidt values
+      (:func:`imps_checks`).
+    Returns (launches, worst kernel-twin differences)."""
+    t_phase = time.perf_counter()
+    tp = {"chi_max": 128}
+    H = piflux(4, 8)
+    fermions = [slater.H_to_MPS(H, tp, spinful="PH", device=dev) for dev in ("cuda", "cpu")]
+    f_f = fidelity(np, *fermions)
+    d_f = spectra_diff(np, *fermions, "phase 10", qtotal=True)[1]
+    gpu, cpu = (gutzwiller.abrikosov_ph(m) for m in fermions)
+    f = fidelity(np, gpu, cpu)
+    d_w = spectra_diff(np, gpu, cpu, "phase 10", qtotal=True)[1]
+    weight = min(gpu.norm, cpu.norm) ** 2
+    # the control: H moved by one ulp (a seeded symmetric perturbation),
+    # converted and projected on the CPU; its labels may differ where the
+    # canonical form's cutoff meets a Schmidt value, so the sorted spectra
+    # are compared per Sz sector with zeros for the missing values
+    controls = []
+    for seed in (0, 1):
+        E = np.random.default_rng(seed).standard_normal(H.shape)
+        ctl = gutzwiller.abrikosov_ph(slater.H_to_MPS(
+            H + np.finfo(float).eps * (E + E.T) / 2, tp, spinful="PH", device="cpu"))
+        controls.append(padded_spectra_diff(np, cpu, ctl))
+    print(f"phase 10: config 4 (pi-flux W=4 Lx=8, PH, chi=128 -> {gpu.L} spin sites, chi_max "
+          f"{gpu.chi_max}): fermionic MPS card vs CPU 1 - fidelity {1 - f_f:.3e}, squared-Schmidt "
+          f"diff {d_f:.3e}; projected weight {weight:.3e}; spin MPS card vs CPU 1 - fidelity "
+          f"{1 - f:.3e}, squared-Schmidt diff per Sz sector {d_w:.3e} (bound "
+          f"{SPIN_SPECTRUM_TOL:.0e}), Sz labels identical; control (CPU, H moved by one ulp, "
+          f"seeds 0, 1): {[f'{c:.3e}' for c in controls]}", flush=True)
+    if not (1 - f <= PARITY_TOL and d_f <= PARITY_TOL and d_w <= SPIN_SPECTRUM_TOL):
+        raise AssertionError("phase 10: card and CPU projections differ")
+
+    # full width
+    H = piflux(8, 16)
+    tp = {"chi_max": 512}
+    counted = ("det_fill", "site_overlap_schur", "site_overlap_schur_gmem")
+    for name in counted:
+        getattr(kernels, name).launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    times = {}
+    for run in ("cold", "warm"):
+        ctx = (slater_capture(slater, fw, every=("det_fill", "site_overlap_schur"))
+               if run == "warm" else contextlib.nullcontext({}))
+        with ctx as cap:
+            t0 = time.perf_counter()
+            fmps = slater.H_to_MPS(H, tp, spinful="PH", device="cuda")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        spin = gutzwiller.abrikosov_ph(fmps)
+        torch.cuda.synchronize()
+        times[run] = (t1 - t0, time.perf_counter() - t1)
+        if run == "cold":
+            launches = {name: getattr(kernels, name).launches for name in counted}
+            if launches["det_fill"] <= 0 or launches["site_overlap_schur"] <= 0:
+                raise AssertionError(f"phase 10: K1/K2 not launched: {launches}")
+    peak = torch.cuda.max_memory_allocated()
+    del fmps
+    worst = hold_every(torch, kernels, "phase 10", cap)
+    Ls = spin.L
+    res = {i: canonical_residuals(torch, spin, i)[0] for i in (0, Ls // 2, Ls - 1)}
+    nrm = spin.norm_squared()
+    finite = all(bool(torch.isfinite(B).all()) for B in spin._B)
+    print(f"phase 10: pi-flux W=8 Lx=16 PH chi=512 -> {Ls} spin sites (chi_max {spin.chi_max}): "
+          f"launches {launches}; conversion cold {times['cold'][0]:.3f} s, warm "
+          f"{times['warm'][0]:.3f} s; projection (with canonical_form_finite) cold "
+          f"{times['cold'][1]:.3f} s, warm {times['warm'][1]:.3f} s; max_memory_allocated "
+          f"{peak / 2**20:.1f} MiB; canonical residual at sites "
+          f"{({i: f'{r:.3e}' for i, r in res.items()})}; <psi|psi> - 1 = {nrm - 1:.3e}",
+          flush=True)
+    if not (all(r <= 1e-10 for r in res.values()) and abs(nrm - 1) <= 1e-10 and finite
+            and Ls == 128):
+        raise AssertionError("phase 10: the projected state is not canonical and normalised")
+    del spin, cap
+
+    # the infinite branch
+    t0 = time.perf_counter()
+    imps, err = slater.H_to_iMPS(piflux(4, 8), piflux(4, 9), {"chi_max": 128}, 4, 16,
+                                 spinful="PH", device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    spin = gutzwiller.abrikosov_ph(imps)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    res = imps_checks(torch, np, spin, "phase 10")
+    stats = spin.transfer_stats
+    print(f"phase 10: config 4 iMPS (one ring a cell, PH, chi=128): {err!r}; iMPS {t1 - t0:.3f} "
+          f"s, projection + canonical_form_infinite {t2 - t1:.3f} s ({spin.L} spin sites, "
+          f"bond dims {[len(S) for S in spin._S]}); ARPACK fallbacks {stats['fallbacks']}, "
+          f"matvecs {stats['matvecs']}, failures {stats['arpack_failures']}; canonicality "
+          f"residual {res:.3e}; entanglement entropy "
+          f"{np.round(spin.entanglement_entropy(), 6).tolist()}", flush=True)
+    if stats["arpack_failures"]:
+        raise AssertionError("phase 10: the ARPACK branch failed; the canonical form kept an "
+                             "unconverged power iterate")
+    print(f"phase 10: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, worst
+
+
+def dimer_chain(n):
+    """Bench config 3's dimerized chain (bench.py:160-164)."""
+    import numpy as np
+
+    H = np.zeros((n, n))
+    for i in range(n - 1):
+        H[i, i + 1] = H[i + 1, i] = -1.0 - 0.3 * (-1) ** i
+    return H
+
+
+def phase_imps(torch, np, slater, pfaffian, fw, kernels, testing):
+    """Phase 11: iMPS (bench config 3, bench.py:157-178).
+
+    - Config 3 itself: the dimerized chain at L=128, a cell of 2 sites,
+      chi=64, cut=64, on the card and on the CPU (twins): the iMPSError
+      fields (squared, :func:`error_diff`) and the squared Schmidt values
+      at PARITY_TOL, equal labels, and on each device the splice of n = 1,
+      3 cells into the L=128 conversion against the conversion of L + 2n:
+      |overlap| within 1e-6 of 1 (tests/test_imps.py:84-113).
+    - Full width, two W=8 cylinders at L_short=256, cut=128, chi=512, two
+      rings a cell (sites_per_cell=16, the period of ``cylinder``'s
+      alternating hoppings): bench config 1's, which is gapless, and a
+      gapped one (t2=-0.2), each on the card with the kernels (K1/K2
+      launches, every group held against its twin) and with the twins on
+      the card (:func:`slater_imps_cell`); wall time and peak memory.  The
+      iMPSError is printed, not bounded; the agreement of the two runs is
+      bounded in full on the gapped cell only.
+    - The Pfaffian iMPS on bench config 5's p+ip W=8 cylinder (Lx_short=16,
+      one ring a cell, chi=256): K3/K4 launched, every group held against
+      its twin at KERNEL_RTOL, and the same comparisons, bounded in full.
+    Returns (launches, worst kernel-twin differences)."""
+    t_phase = time.perf_counter()
+    H = dimer_chain(128)
+    H2 = dimer_chain(130)
+    tp = {"chi_max": 64}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        imps, err = slater.H_to_iMPS(H, H2, tp, 2, 64, device=dev)
+        short = slater.H_to_MPS(H, tp, device=dev)
+        ovs = [abs(slater.H_to_MPS(dimer_chain(128 + 2 * n), tp, device=dev).overlap(
+            short.splice(imps, 64, n))) for n in (1, 3)]
+        out[dev] = (imps, err, ovs)
+    d_w = spectra_diff(np, out["cuda"][0], out["cpu"][0], "phase 11", qtotal=True)[1]
+    d_e = error_diff(out["cuda"][1], out["cpu"][1])
+    print(f"phase 11: config 3 (dimerized chain L=128, cell 2, chi=64): card {out['cuda'][1]!r}; "
+          f"card vs CPU squared iMPSError fields diff {d_e:.3e}, squared-Schmidt diff "
+          f"{d_w:.3e}, labels identical; splice |overlap| n=1, 3: card "
+          f"{[f'{o:.12f}' for o in out['cuda'][2]]}, CPU {[f'{o:.12f}' for o in out['cpu'][2]]}",
+          flush=True)
+    if not (d_w <= PARITY_TOL and d_e <= PARITY_TOL
+            and all(abs(o - 1) <= 1e-6 for dev in out for o in out[dev][2])):
+        raise AssertionError("phase 11: config 3's iMPS differs between card and CPU or does "
+                             "not reconstruct the longer chains")
+    del out
+
+    # full width, Slater: kernels against twins on the card
+    counted = ("det_fill", "site_overlap_schur", "site_overlap_schur_gmem")
+    for name in counted:
+        getattr(kernels, name).launches = 0
+    worst = Counter()
+    for t2, certify, label in ((-1.3, False, "bench config 1 cylinder W=8"),
+                               (-0.2, True, "gapped cylinder W=8 (t2=-0.2)")):
+        w = slater_imps_cell(torch, np, slater, fw, kernels, cylinder(8, 256, t2),
+                             cylinder(8, 272, t2), certify,
+                             f"phase 11: {label}, L_short=256, two rings a cell, chi=512")
+        worst = Counter({k: max(worst[k], w[k]) for k in set(worst) | set(w)})
+    launches = {name: getattr(kernels, name).launches for name in counted}
+    if launches["det_fill"] <= 0 or launches["site_overlap_schur"] + launches[
+            "site_overlap_schur_gmem"] <= 0:
+        raise AssertionError(f"phase 11: K1/K2 not launched: {launches}")
+    print(f"phase 11: Slater cells: launches {launches}", flush=True)
+
+    # the Pfaffian iMPS: kernels against twins on the card, every K3/K4
+    # group held
+    H, H2 = testing.pip_hamiltonian(8, 16), testing.pip_hamiltonian(8, 17)
+    tp = {"chi_max": 256}
+    kernels.pf_fill.launches = kernels.bdg_overlap.launches = 0
+    groups = []
+
+    def keep(name):
+        fn = getattr(pfaffian, name)
+
+        def call(*a, **kw):
+            groups.append((name, a, kw))
+            return fn(*a, **kw)
+        return call
+
+    with patched(pfaffian, pf_fill=keep("pf_fill"), bdg_overlap=keep("bdg_overlap")):
+        t0 = time.perf_counter()
+        imps, err = pfaffian.H_to_iMPS(H, H2, tp, 8, 64, basis="C", device="cuda")
+        torch.cuda.synchronize()
+        t_k = time.perf_counter() - t0
+    pf_launches = {"pf_fill": kernels.pf_fill.launches,
+                   "bdg_overlap": kernels.bdg_overlap.launches}
+    if min(pf_launches.values()) <= 0:
+        raise AssertionError(f"phase 11: K3/K4 not launched: {pf_launches}")
+    held = Counter()
+    for name, a, kw in groups:
+        rel, ab = (pf_err if name == "pf_fill" else bdg_err)(torch, kernels, a, kw)
+        held[name] += 1
+        worst[name] = max(worst[name], ab)
+        if not rel <= KERNEL_RTOL:
+            raise AssertionError(f"phase 11: {name} group: kernel-twin rel err {rel:.3e}")
+    del groups
+    short = pfaffian.H_to_MPS(H, tp, basis="C", device="cuda")
+    with patched(pfaffian, pf_fill=kernels.pf_fill_plain, bdg_overlap=kernels.bdg_overlap_plain):
+        twin, err_t = pfaffian.H_to_iMPS(H, H2, tp, 8, 64, basis="C", device="cuda")
+        short_t = pfaffian.H_to_MPS(H, tp, basis="C", device="cuda")
+    imps_against_twins(np, (short, short_t), 64, (imps, err), (twin, err_t),
+                       "phase 11: Pfaffian iMPS, p+ip W=8 Lx_short=16, cell 8, chi=256",
+                       certify=True)
+    print(f"phase 11: Pfaffian iMPS: launches {pf_launches}, every group held against its twin "
+          f"{dict(held)} (worst abs {dict(worst)}); kernels {t_k:.3f} s", flush=True)
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {**launches, **pf_launches}, worst
+
+
+def slater_imps_cell(torch, np, slater, fw, kernels, H, H2, certify, label):
+    """One full-width Slater iMPS cell (two rings, cut=128, chi=512): the
+    card run with the kernels, every K1/K2 group held against its twin,
+    then the run with the twins on the card, compared by
+    :func:`imps_against_twins`.  Returns the worst kernel-twin differences
+    per kernel."""
+    tp = {"chi_max": 512}
+    torch.cuda.reset_peak_memory_stats()
+    with slater_capture(slater, fw, every=("det_fill", "site_overlap_schur")) as cap:
+        t0 = time.perf_counter()
+        imps, err = slater.H_to_iMPS(H, H2, tp, 16, 128, device="cuda")
+        torch.cuda.synchronize()
+        t_k = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    worst = hold_every(torch, kernels, label, cap)
+    del cap
+    short = slater.H_to_MPS(H, tp, device="cuda")
+    with patched(slater, det_fill=kernels.det_fill_plain,
+                 site_overlap_schur=kernels.site_overlap_schur_plain):
+        t0 = time.perf_counter()
+        twin, err_t = slater.H_to_iMPS(H, H2, tp, 16, 128, device="cuda")
+        torch.cuda.synchronize()
+        t_t = time.perf_counter() - t0
+        short_t = slater.H_to_MPS(H, tp, device="cuda")
+    imps_against_twins(np, (short, short_t), 128, (imps, err), (twin, err_t), label, certify)
+    print(f"{label}: bond dims {[len(S) for S in imps._S]}; kernels {t_k:.3f} s, twins "
+          f"{t_t:.3f} s, max_memory_allocated {peak / 2**20:.1f} MiB", flush=True)
+    return worst
+
+
+def imps_against_twins(np, shorts, cut, ours, twins, label, certify):
+    """An iMPS with the kernels against the same with the twins on the
+    card.  Each is spliced (n=1) into its own short chain (``shorts``: the
+    kernels' and the twins' conversion), so that the two splices compare as
+    states whatever basis each chain took in its degenerate Schmidt
+    multiplets.  Bounded at PARITY_TOL: the squared Schmidt values, labels
+    and tensor charges, and the squared unitarity errors, which the
+    overlaps alone fix.  With ``certify`` also the squared Schmidt-mixing
+    errors and 1 - fidelity of the two splices: they depend on the
+    Procrustes rotation, which is unique only where the cell's two
+    Schmidt bases span each other (a gapped cell at the Hamiltonian's
+    period, the p+ip cell); on bench config 1's gapless cylinder the
+    rotation's completion on the overlap's null space follows the
+    rounding, so they are printed only."""
+    (imps, err), (twin, err_t) = ours, twins
+    d_w = spectra_diff(np, imps, twin, label, qtotal=True)[1]
+    d_u = max(abs(err.left_unitary**2 - err_t.left_unitary**2),
+              abs(err.right_unitary**2 - err_t.right_unitary**2))
+    d_e = error_diff(err, err_t)
+    f = fidelity(np, shorts[0].splice(imps, cut, 1), shorts[1].splice(twin, cut, 1))
+    print(f"{label}: {err!r}; kernels vs twins: squared-Schmidt diff {d_w:.3e}, squared "
+          f"unitarity errors diff {d_u:.3e}, squared iMPSError fields diff {d_e:.3e} (Schmidt "
+          f"mixing {err.left_schmidt:.6e}, {err.right_schmidt:.6e} vs {err_t.left_schmidt:.6e}, "
+          f"{err_t.right_schmidt:.6e}), splices (n=1) 1 - fidelity {1 - f:.3e}; "
+          f"{'bounded' if certify else 'the last two printed only (gauge not unique)'}",
+          flush=True)
+    bounded = [d_w, d_u] + ([d_e, 1 - f] if certify else [])
+    if not all(x <= PARITY_TOL for x in bounded):
+        raise AssertionError(f"{label}: the kernels' and the twins' iMPS differ")
+
+
 def main() -> int:
     if not (ROOT / "temfpy_torch" / "__init__.py").is_file():
         print("chip_smoke: the temfpy_torch package is not beside this script",
@@ -3218,6 +3633,16 @@ def main() -> int:
     for k in RSF_KERNELS:
         launches[k] = n9[k]
         rec[k] = r9[k]
+    # phases 10 and 11 check that their kernels launched; the kernels keep
+    # the launches of their own slices, their errors take the worst
+    from temfpy_torch import gutzwiller
+
+    _n10, worst10 = phase_gutzwiller(torch, np, slater, gutzwiller, fw, kernels)
+    elapsed("phase 10")
+    _n11, worst11 = phase_imps(torch, np, slater, pfaffian, fw, kernels, testing)
+    elapsed("phase 11")
+    for k, ab in list(worst10.items()) + list(worst11.items()):
+        rec[k]["max_abs_err"] = max(rec[k]["max_abs_err"], ab)
     for k, ab in list(worst.items()) + list(worst_swap.items()) + list(worst_rsf.items()):
         rec[k]["max_abs_err"] = max(rec[k]["max_abs_err"], ab)
 

@@ -16,7 +16,14 @@ Ported so far:
   direct determinant fill and the rank-update fill);
 - the BdG/Pfaffian -> finite MPS path (``pfaffian.H_to_MPS`` /
   ``pfaffian.C_to_MPS``);
-- the charge-labelled MPS engine they need (:mod:`temfpy_torch.mps`);
+- iMPS unit cells from two chains that differ by one cell
+  (``slater.H_to_iMPS`` / ``C_to_iMPS``, ``pfaffian.H_to_iMPS`` /
+  ``C_to_iMPS``, and :func:`temfpy_torch.iMPS.MPS_to_iMPS` from two finite
+  MPS);
+- Gutzwiller projection of finite and infinite Abrikosov-fermion MPS to
+  spin-1/2 (:mod:`temfpy_torch.gutzwiller`);
+- the charge-labelled MPS engine they need, finite and infinite chains
+  (:mod:`temfpy_torch.mps`);
 - the hand-written CUDA kernels of those paths, 13 sources under
   ``temfpy_torch/csrc/`` built with nvcc at first use, each behind a
   wrapper in :mod:`temfpy_torch.ops.kernels` beside its plain PyTorch twin.
@@ -29,6 +36,8 @@ __version__ = "0.1.0"
 
 __all__ = [
     "config",
+    "gutzwiller",
+    "iMPS",
     "mps",
     "ops",
     "pfaffian",

@@ -21,6 +21,9 @@ complex_dtype = torch.complex128
 DEFAULT_SVD_MIN = 1e-6
 DEFAULT_DEG_TOL = 1e-12
 DIAG_TOL = 1e-8
+UNITARY_TOL = 1e-6
+SCHMIDT_TOL = 1e-6
+NUMERICAL_TOL = 1e-14
 
 
 def default_device() -> torch.device:

@@ -36,7 +36,10 @@ Not ported (TPU workarounds of the JAX package): the split-plane overlap
 path (``complex_on_device``, ``splitc`` frames, the deferred overlap
 preparations), ``queue`` / ``materialise_queued`` and the fused downloads,
 ``compute_context`` and the ``dtype=`` cast, the host-LAPACK eigh branch of
-``modes_batched``.  Not yet ported: ``C_to_iMPS`` / ``H_to_iMPS``.
+``modes_batched``.
+
+``C_to_iMPS`` / ``H_to_iMPS`` build an iMPS cell from two chains that
+differ by one unit cell, through the same kernels.
 """
 
 from __future__ import annotations
@@ -1157,6 +1160,101 @@ def C_to_MPS(C, trunc_par, *, basis: str, diag_tol: float = _DIAG_TOL,
                form=["A"] * c + ["B"] * (L - c), bc="finite",
                unit_cell_width=unit_cell_width, q_bonds=q_bonds,
                qtotals=[qt for _, qt in tensors])
+
+
+def C_to_iMPS(C_short, C_long, trunc_par, sites_per_cell: int, cut: int, *, basis: str,
+              diag_tol: float = _DIAG_TOL, unitary_tol: float | None = None,
+              schmidt_tol: float | None = None, unit_cell_width: int | None = None,
+              device=None):
+    r"""iMPS of a Nambu mean-field state from two correlation matrices that
+    differ by one repeating unit cell (reference pfaffian.py:1924-2091), on
+    ``device`` (default: C_short's device for a tensor, else ``cuda``).
+
+    The cell tensors are the long chain's right-canonical tensors from cut
+    to cut + sites_per_cell, the last one closing onto the short chain's
+    right Schmidt vectors (so the right-side errors are zero); the gauge
+    overlap of the two chains' left Schmidt bases comes from the Pfaffian
+    overlap formulas (one :class:`MPSTensorData` across the two chains).
+    Returns (iMPS, :class:`temfpy_torch.iMPS.iMPSError`)."""
+    from . import iMPS as imps_mod
+
+    trunc_par = to_stopping_condition(trunc_par)
+    unitary_tol = imps_mod._UNITARY_TOL if unitary_tol is None else unitary_tol
+    schmidt_tol = imps_mod._SCHMIDT_TOL if schmidt_tol is None else schmidt_tol
+    dev = resolve_device(C_short, device)
+    C_short, C_long = _host(C_short), _host(C_long)
+    if basis == "C":
+        C_short, C_long = matrix_C2M(C_short), matrix_C2M(C_long)
+    elif basis != "M":
+        raise ValueError(f"Argument `basis` must be 'M' or 'C', got {basis!r}")
+    tol = trunc_par.svd_min**2
+    C_short = assert_nambu_correlation(C_short, "M", atol=tol)
+    C_long = assert_nambu_correlation(C_long, "M", atol=tol)
+    L_short, L_long = C_short.shape[0] // 2, C_long.shape[0] // 2
+    if L_short + sites_per_cell != L_long:
+        raise ValueError("The given two systems must differ by one unit cell, got "
+                         f"{L_long} - {L_short} != {sites_per_cell}")
+    if unit_cell_width is None:
+        unit_cell_width = sites_per_cell
+    elif sites_per_cell % unit_cell_width != 0:
+        raise ValueError(f"{unit_cell_width = } does not divide {sites_per_cell = }")
+    C_short = torch.as_tensor(np.ascontiguousarray(C_short), device=dev)
+    C_long = torch.as_tensor(np.ascontiguousarray(C_long), device=dev)
+
+    Schmidt_short = SchmidtVectors.from_correlation_matrix(C_short, cut, trunc_par, basis="M",
+                                                           diag_tol=diag_tol)
+    Schmidt_long = SchmidtVectors.from_correlation_matrix(C_long, cut, trunc_par, basis="M",
+                                                          diag_tol=diag_tol)
+    total_parity = Schmidt_long.parity()
+    lams = [normalize_SV(Schmidt_short.schmidt_values, logger)]
+    q_bonds = [Schmidt_short.q_parity(Schmidt_short.pL)]
+    pairs = []
+    Schmidt = Schmidt_long
+    for i in range(sites_per_cell):
+        if i == sites_per_cell - 1:
+            Schmidt_new = Schmidt_short
+            lams.append(lams[0])
+            q_bonds.append(q_bonds[0])
+        else:
+            Schmidt_new = SchmidtVectors.from_correlation_matrix(
+                C_long, cut + i + 1, trunc_par, which="R", basis="M", diag_tol=diag_tol,
+                total_parity=total_parity)
+            lams.append(normalize_SV(Schmidt_new.schmidt_values, logger))
+            q_bonds.append(Schmidt_new.q_parity(Schmidt_new.pL))
+        pairs.append((Schmidt_new, Schmidt, "right"))
+        Schmidt = Schmidt_new
+    with profiling.stage("tensor_fill"):
+        results = build_site_tensors(pairs, device=dev)
+    tensors = [T for T, _ql, _qr, _qt in results]
+    qts = [qt for _T, _ql, _qr, qt in results]
+
+    # gauge-fix the first tensor
+    with profiling.stage("tensor_fill"):
+        Cmat, q_bra, q_ket, _qt = MPSTensorData.from_schmidt_vectors(
+            Schmidt_short, Schmidt_long, "left", device=dev).to_dense_tensor()
+    Cmat, left_unitary, left_schmidt = imps_mod.basis_rotation(
+        Cmat, normalize_SV(Schmidt_short.schmidt_values), normalize_SV(Schmidt_long.schmidt_values),
+        mode="left", q_bra=q_bra, q_ket=q_ket, chinfo=fermion_site.chinfo,
+        unitary_tol=unitary_tol, schmidt_tol=schmidt_tol)
+    tensors[0] = torch.einsum("ab,bnc->anc", Cmat, tensors[0])
+    imps = MPS([fermion_site] * sites_per_cell, tensors, lams, form="B", bc="infinite",
+               unit_cell_width=unit_cell_width, q_bonds=q_bonds, qtotals=qts)
+    return imps, imps_mod.iMPSError(left_unitary, left_schmidt, 0.0, 0.0)
+
+
+def H_to_iMPS(H_short, H_long, trunc_par, sites_per_cell: int, cut: int, *, basis: str,
+              diag_tol: float = _DIAG_TOL, unitary_tol: float | None = None,
+              schmidt_tol: float | None = None, unit_cell_width: int | None = None,
+              device=None):
+    r"""iMPS of a Nambu mean-field state from two BdG Hamiltonians that
+    differ by one unit cell (reference pfaffian.py:2151-2243), on
+    ``device`` (see :func:`C_to_iMPS`)."""
+    dev = resolve_device(H_short, device)
+    C_short = correlation_matrix(H_short, basis=f"{basis}->{basis}", device=dev)
+    C_long = correlation_matrix(H_long, basis=f"{basis}->{basis}", device=dev)
+    return C_to_iMPS(C_short, C_long, trunc_par, sites_per_cell, cut, basis=basis,
+                     diag_tol=diag_tol, unitary_tol=unitary_tol, schmidt_tol=schmidt_tol,
+                     unit_cell_width=unit_cell_width, device=dev)
 
 
 def H_to_MPS(H, trunc_par, *, basis: str, diag_tol: float = _DIAG_TOL,

@@ -63,10 +63,16 @@ JAX package's CPU layout, which gives the same tensors), the ``GB = 8``
 chunk padding and the ``*_group`` vmaps of the grouped swap stages (each
 kernel takes a whole group), the 4x pair-batch grid (pair batches pad to
 powers of two, as the direct plans do) and the per-class dispatch
-``dispatch_fill``.  Not yet ported: the single-site API
-(``MPSTensorData.from_schmidt_vectors``, ``to_dense_tensor``,
-``dispatch_fill``; the iMPS slice needs it, and it runs only kernels the
-port has) and ``C_to_iMPS``/``H_to_iMPS``.
+``dispatch_fill`` (``_fill_sites`` launches a site's fills, singly or in
+groups).
+
+``C_to_iMPS`` / ``H_to_iMPS`` build an iMPS cell from two chains that
+differ by one unit cell: the cell's site tensors through
+:func:`build_site_tensors`, the gauge overlap of the two chains' left
+Schmidt bases through the single-site API
+(:meth:`MPSTensorData.from_schmidt_vectors`,
+:meth:`MPSTensorData.to_dense_tensor`), whose bra and ket may come from
+chains of different length.
 """
 
 from __future__ import annotations
@@ -713,14 +719,15 @@ class MPSTensorData:
     (``det_always``); each remaining entry is a small determinant over the
     "sometimes" orbitals of ``sometimes_matrix``.
 
-    Only what :func:`build_site_tensors` runs is ported: the packed direct
-    plan, the rank-update class plan, and the resolve (class fallbacks,
-    the slice to the true shape).  The single-site API
-    (``from_schmidt_vectors``, ``to_dense_tensor``, ``dispatch_fill``) and
-    the unpacked plan (``_direct_arrays``, ``_scatter_ix``) are not: a
-    failed rank-update class is recomputed through a packed direct plan
-    and ``det_fill``, the function of the JAX package's
-    ``_det_direct_vals_impl`` and ``scatter_vals_kernel``.
+    :func:`build_site_tensors` evaluates many sites in groups;
+    :meth:`from_schmidt_vectors` and :meth:`to_dense_tensor` one site,
+    through the same kernels.  The plans are packed: per-unique-bond index
+    tables and scatter tables (``_direct_plan_packed``, ``_scatter_tables``)
+    take the place of the JAX package's unpacked per-pair arrays
+    (``_direct_arrays``, ``_scatter_ix``), and a failed rank-update class is
+    recomputed through a packed direct plan and ``det_fill``, the function
+    of the JAX package's ``_det_direct_vals_impl`` and
+    ``scatter_vals_kernel``.
     """
 
     mode: str
@@ -734,6 +741,23 @@ class MPSTensorData:
     q_bra: np.ndarray  # charge labels (N left) per bra bond index
     q_ket: np.ndarray
     qtotal: int
+
+    @classmethod
+    def from_schmidt_vectors(cls: Type["MPSTensorData"], Schmidt_bra: SchmidtVectors,
+                             Schmidt_ket: SchmidtVectors, mode: str) -> "MPSTensorData":
+        """One site's (or one overlap matrix's) data: host planning and one
+        ``site_overlap_schur`` launch on the frames' device.  Bra and ket
+        may come from chains of different length (the iMPS cell and its
+        gauge overlap)."""
+        plan = _plan_site(Schmidt_bra, Schmidt_ket, mode)
+        det, som = _overlap_group([plan])
+        return cls(det_always=det[0], sometimes_matrix=som[0], **plan["fields"])
+
+    def to_dense_tensor(self):
+        """The dense (chiL, d, chiR) tensor, or the (bra, ket) matrix without
+        a physical leg, with host bond labels: (T, q_l, q_r, qtotal)
+        (reference ``to_npc_array``, slater.py:1106-1143)."""
+        return _fill_sites([self])[0]
 
     def _plan_fill(self):
         """Host planning of the tensor fill: returns (shape, q_l, q_r,
@@ -996,12 +1020,20 @@ def _plan_site(Schmidt_bra: SchmidtVectors, Schmidt_ket: SchmidtVectors, mode: s
     col0_ket = modes_ket.col0L if side == "L" else modes_ket.col0R
     if frame_bra is None or frame_ket is None:
         raise ValueError(f"Schmidt vectors contain no {mode} Schmidt vectors")
-    if modes_ket.L != modes_bra.L:
-        raise NotImplementedError("overlaps between chains of different length "
-                                  "(iMPS gauge fixing) are not ported yet")
     sets_bra = Schmidt_bra.sets(mode)
     sets_ket = Schmidt_ket.sets(mode)
-    L = modes_bra.L
+    L, Lk = modes_bra.L, modes_ket.L
+    if Lk != L:
+        # two chains of different length (the iMPS cell and gauge overlaps):
+        # every orbital of a cut lives in its side's rows, so both frames
+        # keep the common span of rows next to the cut; the row bookkeeping
+        # below (physical row, pad pools) is relative to that span
+        Lc = min(L, Lk)
+        if side == "L":
+            frame_bra, frame_ket = frame_bra[:Lc], frame_ket[:Lc]
+        else:
+            frame_bra, frame_ket = frame_bra[L - Lc :], frame_ket[Lk - Lc :]
+        L = Lc
 
     ns_bra, n_bra = sets_bra.shape
     n_ket = sets_ket.shape[1]
@@ -1190,9 +1222,15 @@ def build_site_tensors(pairs):
             for g, i in enumerate(idxs):
                 det_of[i], som_of[i] = det_s[g], som_s[g]
 
+    return _fill_sites([MPSTensorData(det_always=det_of[i], sometimes_matrix=som_of[i],
+                                      **plans[i]["fields"]) for i in range(n)])
+
+
+def _fill_sites(datas):
+    """The fill of many sites' data, grouped by shape bucket: the direct
+    fill (kernel K1), then the rank-update classes (K6a, K6b, K5).  Returns
+    [(T, q_l, q_r, qtotal)] aligned with ``datas``."""
     # ---- stage 2: grouped fill (kernel K1) ----
-    datas = [MPSTensorData(det_always=det_of[i], sometimes_matrix=som_of[i],
-                           **plans[i]["fields"]) for i in range(n)]
     with profiling.stage("fill/plan_fill"):
         fill_plans = [d._plan_fill() for d in datas]
     # one zeroed buffer per bucketed shape holds its sites' tensors, a slot
@@ -1528,6 +1566,121 @@ def C_to_MPS(C, trunc_par, *, diag_tol: float = _DIAG_TOL, ortho_center: int | N
                form=["A"] * c + ["B"] * (L - c), bc="finite",
                unit_cell_width=unit_cell_width, q_bonds=q_bonds,
                qtotals=[qt for _, qt in tensors])
+
+
+def C_to_iMPS(C_short, C_long, trunc_par, sites_per_cell: int, cut: int, *,
+              diag_tol: float = _DIAG_TOL, unitary_tol: float | None = None,
+              schmidt_tol: float | None = None,
+              spinful: Literal["simple", "PH", None] = None, offset="auto",
+              unit_cell_width: int | None = None, device=None):
+    r"""iMPS of a Slater determinant from two correlation matrices that
+    differ by one repeating unit cell (reference slater.py:1356-1565), on
+    ``device`` (default: C_short's device for a tensor, else ``cuda``).
+
+    No environment is contracted: the cell tensors are the long chain's
+    right-canonical tensors from cut to cut + sites_per_cell, the last one
+    closing onto the short chain's right Schmidt vectors (so the right-side
+    errors are zero), and the gauge overlap of the two chains' left Schmidt
+    bases comes from the Slater overlap formulas (one
+    :class:`MPSTensorData` across the two chains).  Returns (iMPS,
+    :class:`temfpy_torch.iMPS.iMPSError`)."""
+    from . import iMPS as imps_mod
+
+    trunc_par = to_stopping_condition(trunc_par)
+    unitary_tol = imps_mod._UNITARY_TOL if unitary_tol is None else unitary_tol
+    schmidt_tol = imps_mod._SCHMIDT_TOL if schmidt_tol is None else schmidt_tol
+    if unit_cell_width is None:
+        unit_cell_width = sites_per_cell
+    elif sites_per_cell % unit_cell_width != 0:
+        raise ValueError(f"{unit_cell_width = } does not divide {sites_per_cell = }")
+    C_short = _to_device(C_short, device)
+    C_long = _to_device(C_long, C_short.device)
+    if spinful in ("simple", "PH"):
+        if spinful == "simple":
+            if offset == "auto":
+                offset = 2 * round(float(torch.trace(C_short[:cut, :cut]).real))
+                logger.info("Using total offset %s for conserved fermion number", offset)
+            else:
+                offset *= 2
+        C_short = spinful_correlation_matrix(C_short, spinful == "PH")
+        C_long = spinful_correlation_matrix(C_long, spinful == "PH")
+        sites_per_cell *= 2
+        cut *= 2
+    elif spinful is not None:
+        raise ValueError(f"`spinful` must be 'simple', 'PH', or `None`, got {spinful!r}")
+
+    L_short, L_long = C_short.shape[0], C_long.shape[0]
+    if C_short.shape != (L_short, L_short) or C_long.shape != (L_long, L_long):
+        raise ValueError("Got a non-square correlation matrix")
+    if L_short + sites_per_cell != L_long:
+        raise ValueError("The given two systems must differ by one unit cell, got "
+                         f"{L_long} - {L_short} != {sites_per_cell}")
+    if offset == "auto":
+        offset = round(float(torch.trace(C_short[:cut, :cut]).real))
+        logger.info("Using offset %s for conserved fermion number", offset)
+    offset = int(offset)
+    _reset_swap_stats()
+    reset_rsf_stats()
+
+    Schmidt_short = SchmidtVectors.from_correlation_matrix(C_short, cut, trunc_par,
+                                                           diag_tol=diag_tol)
+    Schmidt_long = SchmidtVectors.from_correlation_matrix(C_long, cut, trunc_par,
+                                                          diag_tol=diag_tol)
+    lams = [normalize_SV(Schmidt_short.schmidt_values, logger)]
+    q_bonds = [Schmidt_short.q_left - offset]
+    # right-canonical cell tensors of the long chain; the last one closes
+    # onto the short chain's right Schmidt vectors
+    n_long = int(np.round(float(torch.trace(C_long).real)))
+    mid_sv = _schmidt_vectors_batched(C_long, list(range(cut + 1, cut + sites_per_cell)), "R",
+                                      trunc_par, diag_tol, 32, n_long)
+    pairs = []
+    Schmidt = Schmidt_long
+    for i in range(sites_per_cell):
+        if i == sites_per_cell - 1:
+            Schmidt_new = Schmidt_short
+            lams.append(lams[0])
+            q_bonds.append(q_bonds[0])
+        else:
+            Schmidt_new = mid_sv[i]
+            lams.append(normalize_SV(Schmidt_new.schmidt_values, logger))
+            q_bonds.append(Schmidt_new.q_left - offset)
+        pairs.append((Schmidt_new, Schmidt, "right"))
+        Schmidt = Schmidt_new
+    with profiling.stage("tensor_fill"):
+        results = build_site_tensors(pairs)
+    tensors = [T for T, _ql, _qr, _qt in results]
+    qts = [qt for _T, _ql, _qr, qt in results]
+
+    # gauge-fix the first tensor through the Slater overlap of the two
+    # chains' left Schmidt bases
+    with profiling.stage("tensor_fill"):
+        Cmat, q_bra, q_ket, qt_c = MPSTensorData.from_schmidt_vectors(
+            Schmidt_short, Schmidt_long, "left").to_dense_tensor()
+    Cmat, left_unitary, left_schmidt = imps_mod.basis_rotation(
+        Cmat, normalize_SV(Schmidt_short.schmidt_values), normalize_SV(Schmidt_long.schmidt_values),
+        mode="left", q_bra=q_bra, q_ket=q_ket, chinfo=chinfo, qtotal=qt_c,
+        unitary_tol=unitary_tol, schmidt_tol=schmidt_tol)
+    tensors[0] = torch.einsum("ab,bnc->anc", Cmat, tensors[0])
+    qts[0] += qt_c
+    imps = MPS([fermion_site] * sites_per_cell, tensors, lams, form="B", bc="infinite",
+               unit_cell_width=unit_cell_width, q_bonds=q_bonds, qtotals=qts)
+    return imps, imps_mod.iMPSError(left_unitary, left_schmidt, 0.0, 0.0)
+
+
+def H_to_iMPS(H_short, H_long, trunc_par, sites_per_cell: int, cut: int, *,
+              diag_tol: float = _DIAG_TOL, unitary_tol: float | None = None,
+              schmidt_tol: float | None = None,
+              spinful: Literal["simple", "PH", None] = None, offset="auto",
+              unit_cell_width: int | None = None, device=None):
+    r"""iMPS of a Slater determinant from two single-particle Hamiltonians
+    that differ by one unit cell (reference slater.py:1630-1735), on
+    ``device`` (see :func:`C_to_iMPS`)."""
+    dev = resolve_device(H_short, device)
+    C_short, _ = correlation_matrix(H_short, device=dev)
+    C_long, _ = correlation_matrix(H_long, device=dev)
+    return C_to_iMPS(C_short, C_long, trunc_par, sites_per_cell, cut, diag_tol=diag_tol,
+                     unitary_tol=unitary_tol, schmidt_tol=schmidt_tol, spinful=spinful,
+                     offset=offset, unit_cell_width=unit_cell_width, device=dev)
 
 
 def H_to_MPS(H, trunc_par, *, diag_tol: float = _DIAG_TOL, ortho_center: int | None = None,

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from temfpy_torch import pfaffian, slater, testing
+from temfpy_torch import gutzwiller, pfaffian, slater, testing
 from temfpy_torch.ops import kernels
 
 pytestmark = pytest.mark.cuda
@@ -1096,3 +1096,79 @@ def test_pf_fill_all_pad_group(cuda, w):
     wide[6][:, 0] = 0
     got = kernels.pf_fill(*wide, **kw)
     assert bool(torch.isnan(got).any())
+
+
+def _piflux(W, Lx):
+    """Bench config 4's pi-flux cylinder (bench.py:181-212)."""
+    L = W * Lx
+    H = np.zeros((L, L))
+    for x in range(Lx):
+        for y in range(W):
+            i, j = x * W + y, x * W + (y + 1) % W
+            if x + 1 < Lx:
+                H[i, i + W] = H[i + W, i] = -1.0 if y % 2 == 0 else 1.0
+            H[i, j] = H[j, i] = -1.0
+    return H - 1e-4 * np.diag(np.arange(L))
+
+
+def _squared_spectra_diff(a, b):
+    """Max squared-Schmidt difference per bond and charge; labels equal."""
+    worst = 0.0
+    for bnd in range(a.L + 1):
+        qa, qb = a.q_bond[bnd], b.q_bond[bnd]
+        assert np.array_equal(qa, qb), bnd
+        for q in np.unique(qa):
+            sa, sb = np.sort(a.get_SL(bnd)[qa == q]), np.sort(b.get_SL(bnd)[qb == q])
+            worst = max(worst, float(np.abs(sa**2 - sb**2).max()))
+    return worst
+
+
+def _twins(monkeypatch, module, **names):
+    for name, plain in names.items():
+        monkeypatch.setattr(module, name, getattr(kernels, plain))
+
+
+def test_gutzwiller_on_cuda_kernels_match_twins(cuda, monkeypatch):
+    """abrikosov_ph of bench config 4's conversion (W=4, Lx=8, chi=128):
+    with the kernels, then with their twins, on the card."""
+    H = _piflux(4, 8)
+    tp = {"chi_max": 128}
+    kernels.det_fill.launches = kernels.site_overlap_schur.launches = 0
+    spin = gutzwiller.abrikosov_ph(slater.H_to_MPS(H, tp, spinful="PH", device=cuda))
+    assert kernels.det_fill.launches > 0 and kernels.site_overlap_schur.launches > 0
+    _twins(monkeypatch, slater, det_fill="det_fill_plain",
+           site_overlap_schur="site_overlap_schur_plain")
+    twin = gutzwiller.abrikosov_ph(slater.H_to_MPS(H, tp, spinful="PH", device=cuda))
+    f = abs(spin.overlap(twin)) / np.sqrt(spin.norm_squared() * twin.norm_squared())
+    assert f >= 1 - 1e-10 and spin.L == 32
+    # the spin MPS renormalises by its projected weight (spin.norm^2)
+    assert _squared_spectra_diff(spin, twin) <= 1e-10 / spin.norm
+
+
+def test_slater_imps_on_cuda_kernels_match_twins(cuda, monkeypatch):
+    def dimer(n):
+        M = np.diag(-1.0 - 0.3 * (-1.0) ** np.arange(n - 1), 1)
+        return M + M.T
+
+    tp = {"chi_max": 64}
+    kernels.det_fill.launches = kernels.site_overlap_schur.launches = 0
+    imps, err = slater.H_to_iMPS(dimer(64), dimer(66), tp, 2, 32, device=cuda)
+    assert kernels.det_fill.launches > 0 and kernels.site_overlap_schur.launches > 0
+    _twins(monkeypatch, slater, det_fill="det_fill_plain",
+           site_overlap_schur="site_overlap_schur_plain")
+    twin, err_t = slater.H_to_iMPS(dimer(64), dimer(66), tp, 2, 32, device=cuda)
+    assert _squared_spectra_diff(imps, twin) <= 1e-10
+    assert max(abs(x * x - y * y) for x, y in zip(err, err_t)) <= 1e-10
+    assert not imps.finite and imps._B[0].is_cuda
+
+
+def test_pfaffian_imps_on_cuda_kernels_match_twins(cuda, monkeypatch):
+    H, H2 = testing.pip_hamiltonian(4, 8), testing.pip_hamiltonian(4, 9)
+    tp = {"chi_max": 64}
+    kernels.pf_fill.launches = kernels.bdg_overlap.launches = 0
+    imps, err = pfaffian.H_to_iMPS(H, H2, tp, 4, 16, basis="C", device=cuda)
+    assert kernels.pf_fill.launches > 0 and kernels.bdg_overlap.launches > 0
+    _twins(monkeypatch, pfaffian, pf_fill="pf_fill_plain", bdg_overlap="bdg_overlap_plain")
+    twin, err_t = pfaffian.H_to_iMPS(H, H2, tp, 4, 16, basis="C", device=cuda)
+    assert _squared_spectra_diff(imps, twin) <= 1e-10
+    assert max(abs(x * x - y * y) for x, y in zip(err, err_t)) <= 1e-10

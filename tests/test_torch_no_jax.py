@@ -17,8 +17,8 @@ def test_port_imports_and_runs_without_jax():
         import sys
         import numpy as np
         import temfpy_torch
-        from temfpy_torch import (config, mps, pfaffian, profiling, schmidt_utils, slater,
-                                  testing, utils)
+        from temfpy_torch import (config, gutzwiller, iMPS, mps, pfaffian, profiling,
+                                  schmidt_utils, slater, testing, utils)
         from temfpy_torch.mps import io
         from temfpy_torch.ops import _build, fw, kernels, linalg, spectral
         from temfpy_torch.ops import pfaffian as ops_pfaffian
@@ -30,6 +30,22 @@ def test_port_imports_and_runs_without_jax():
         bdg = pfaffian.H_to_MPS(testing.pip_hamiltonian(2, 3), {"chi_max": 16}, basis="C",
                                 device="cpu")
         assert abs(bdg.norm_squared() - 1) < 1e-10
+        # Gutzwiller projection, finite and infinite, and the iMPS drivers
+        spin = gutzwiller.abrikosov_ph(slater.H_to_MPS(H[:4, :4], {"chi_max": 32},
+                                                       spinful="PH", device="cpu"))
+        assert spin.L == 4 and abs(spin.norm_squared() - 1) < 1e-10
+
+        def dimer(L):
+            M = np.diag(np.where(np.arange(L - 1) % 2, -2.5, -1.0), 1)
+            return M + M.T
+
+        cell, err = slater.H_to_iMPS(dimer(4), dimer(6), {"chi_max": 64}, 2, 2, spinful="PH",
+                                     device="cpu")
+        spin = gutzwiller.abrikosov_ph(cell)
+        assert not spin.finite and max(abs(np.linalg.norm(S) - 1) for S in spin._S) < 1e-8
+        short, long_ = (slater.H_to_MPS(dimer(L), {"chi_max": 16}, device="cpu") for L in (8, 10))
+        cell, err = iMPS.MPS_to_iMPS(short, long_, 2, 4)
+        assert np.isfinite(err.total_error) and not cell.finite and cell.L == 2
         # the rank-update fill (on by default for CPU conversions) and the
         # index-row batches
         W, L = 8, 32
