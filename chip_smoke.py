@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (temfpy_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --mesh-only   # phase 12 alone (e.g. on several cards)
 
 Phases, each printing a line; any failure raises and exits non-zero:
 
@@ -91,11 +92,23 @@ Phases, each printing a line; any failure raises and exits non-zero:
    (L=128, chi=64) on the card and the CPU with splice reconstructions; at
    full width on bench config 1's W=8 cylinder (chi=512) and the
    ``pfaffian.H_to_iMPS`` of bench config 5's p+ip cylinder (chi=256),
-   kernels against twins on the card.
+   kernels against twins on the card;
+12. the device mesh (``temfpy_torch.parallel``; run after phase 6): every
+   card where torch sees two or more, else a 2x2 grid of logical shards of
+   ``cuda:0``; the mesh's smoke step ``multichip_conversion_step``; bench
+   config 1 (L=256, chi=512) through ``slater.H_to_MPS`` under the mesh
+   with the default chi-shard gate and with ``CHI_SHARD_MIN`` = 512, each
+   against phase 5's state (tensors within 1e-12, else fidelity and
+   squared Schmidt values within 1e-12, printed which), K1 and K2 counted
+   per shard and one group per (shape, shard) held against its twin, the
+   residency of the bond-sharded tensors and ``canonical_form_finite``
+   under the mesh; bench config 5 under the mesh against phase 6's state,
+   K3 and K4 per shard, held; the wall times beside phases 5 and 6.
 
 Phases 3e, 5, 6, 7, 8 and 9 set their kernels' launch counts to 0 just
 before their main-path run and read them just after (4c, 4d, 4e, 4f, 10
-and 11 set theirs to 0 and check that they launched).  The phases of the earlier slices run the direct fill
+11 and 12 set theirs to 0 and check that they launched; 12 on every
+shard).  The phases of the earlier slices run the direct fill
 on both devices (``TEMFPY_TORCH_DET_UPDATES=0``; the CPU's default is the
 rank-update path).  The second-to-last line
 is a JSON object with one record per kernel: its launches in its slice's
@@ -406,6 +419,8 @@ def det_fill_ext(torch, kernels, args, kw, n_sites=4, n_pairs=4096):
         ids = {"r": r, "c": c}
         coords = tuple(tabs[i][g][ids[s]].long() for i, s in enumerate(spec))
         real = coords[0] < shape[0]  # pad pairs point at the trash row
+        if not bool(real.any()):  # a shard's slice of pads only (phase 12)
+            continue
         coords = tuple(x[real] for x in coords)
         kv, tv = K[g][coords], T[g][coords]
         pick = torch.argsort((kv - tv).abs(), descending=True)[:n_pairs]
@@ -759,7 +774,7 @@ def canonical_residuals(torch, mps, i):
     """(unweighted, Schmidt-weighted) residual of site i's canonical form,
     with the conjugate: A sites sum_n A^H A = I, B sites sum_n B B^H = I;
     the weighted form is bench.py's audit (bench.py:351-367)."""
-    T = mps._B[i]
+    T = mps.get_B(i, mps.form[i])
     if mps.form[i] == "A":
         g = torch.einsum("anb,anc->bc", T.conj(), T)
         w = torch.as_tensor(mps.get_SR(i), device=T.device)
@@ -1497,14 +1512,17 @@ def phase_pfaffian_full(torch, np, pfaffian, kernels, profiling, testing):
 
     conv = [0, 0.0, 0.0]  # pf_fill launches, operations, bytes of the warm run
 
-    def fill_rec(*a, **kw):
+    # the fill writes into the conversion's own buffer (out, slot); the
+    # groups are kept without it, so that held and timed calls get fresh
+    # ones and leave the state alone
+    def fill_rec(*a, out=None, slot=None, **kw):
         t = (a[4].gather(1, a[6].long()) + a[5].gather(1, a[7].long()))
         for tot, n in zip(*torch.unique(t[t > 0], return_counts=True)):
             widths[int(tot)] += int(n)
         fills.setdefault((kw["width"], kw["spec"], a[6].shape[-1]), (a, kw))
         f, b = pf_fill_cost(torch, a, kw, None)
         conv[:] = conv[0] + 1, conv[1] + f, conv[2] + b
-        return fill(*a, **kw)
+        return fill(*a, **kw, out=out, slot=slot)
 
     pfaffian.pf_fill, pfaffian.bdg_overlap, pfaffian._overlap_group = (fill_rec, overlap_rec,
                                                                        group_rec)
@@ -1576,6 +1594,7 @@ def phase_pfaffian_full(torch, np, pfaffian, kernels, profiling, testing):
         if not val <= TRUNCATION_BOUNDS[key]:
             failures.append(f"{key} deviates from C by {val:.3e} > {TRUNCATION_BOUNDS[key]}")
 
+    converted = mps.copy()  # the state as converted, for phase 12
     t0 = time.perf_counter()
     mps.canonical_form_finite()
     torch.cuda.synchronize()
@@ -1594,7 +1613,7 @@ def phase_pfaffian_full(torch, np, pfaffian, kernels, profiling, testing):
     device_profile(torch, run, "phase 6")
     if failures:
         raise AssertionError("phase 6: " + "; ".join(failures))
-    return launches, rec
+    return launches, rec, {"state": converted, "warm": warm, "C": C}
 
 
 # --------------------------------------------------------------------------
@@ -3435,7 +3454,8 @@ def phase_imps(torch, np, slater, pfaffian, fw, kernels, testing):
         fn = getattr(pfaffian, name)
 
         def call(*a, **kw):
-            groups.append((name, a, kw))
+            # kept without the conversion's fill buffer (out, slot)
+            groups.append((name, a, {k: v for k, v in kw.items() if k not in ("out", "slot")}))
             return fn(*a, **kw)
         return call
 
@@ -3530,7 +3550,256 @@ def imps_against_twins(np, shorts, cut, ours, twins, label, certify):
         raise AssertionError(f"{label}: the kernels' and the twins' iMPS differ")
 
 
+# --------------------------------------------------------------------------
+# the device mesh (phase 12)
+# --------------------------------------------------------------------------
+
+MESH_TOL = 1e-12
+"""Phase 12: a conversion under the mesh against the one-device conversion
+of the same input, tensor by tensor (the JAX package's mesh check,
+``temfpy_tpu/parallel/mesh.py:147-149``); where an eigh batch split over the
+shards takes another cuSOLVER path, the parity rules at the same
+tolerance: 1 - fidelity and the squared Schmidt values."""
+
+
+def shard_recorder(owner, name, key, groups, counts):
+    """A wrapper of ``owner.name`` that counts each call under the shard
+    launching it (``parallel.mesh.current_shard``) and keeps the inputs of
+    the first call per (shape key, shard) in ``groups`` (without the fill
+    buffer, so that held calls get fresh ones)."""
+    from temfpy_torch.parallel import mesh as pmesh
+
+    orig = getattr(owner, name)
+
+    def call(*a, **kw):
+        sh = pmesh.current_shard()
+        counts[sh] += 1
+        groups.setdefault((key(a, kw), sh),
+                          (a, {k: v for k, v in kw.items() if k not in ("out", "slot")}))
+        return orig(*a, **kw)
+    return call
+
+
+def mesh_parity(np, pmesh, ref, out, label):
+    """The largest tensor difference of a mesh state against the one-device
+    one; where it passes MESH_TOL, 1 - fidelity and the squared Schmidt
+    values must hold it instead.  Returns what held."""
+    dev = max(float((ref._tensor(i) - out._tensor(i)).abs().max()) for i in range(ref.L))
+    if dev <= MESH_TOL:
+        print(f"{label}: tensors within {dev:.3e} of the one-device state (the tensors held)",
+              flush=True)
+        return "tensors"
+    fid = fidelity(np, ref, out)
+    d1, d2 = spectra_diff(np, ref, out, label, qtotal=True)
+    print(f"{label}: tensors {dev:.3e} apart (an eigh of a smaller batch); 1 - fidelity "
+          f"{1 - fid:.3e}, squared Schmidt values {d2:.3e} apart (the parity rules held)",
+          flush=True)
+    if not (1 - fid <= MESH_TOL and d2 <= MESH_TOL):
+        raise AssertionError(f"{label}: the mesh state deviates: tensors {dev:.3e}, 1 - fidelity "
+                             f"{1 - fid:.3e}, squared Schmidt values {d2:.3e}")
+    return "parity"
+
+
+def hold_shards(torch, kernels, label, groups, hold_one):
+    """Every kept (shape, shard) group of one kernel against its twin;
+    returns the worst absolute difference."""
+    worst = 0.0
+    for (key, sh), (args, kw) in groups.items():
+        worst = max(worst, hold_one(key, sh, args, kw))
+    print(f"{label}: {len(groups)} (shape, shard) groups held against the twin, worst abs err "
+          f"{worst:.3e}", flush=True)
+    return worst
+
+
+def phase_mesh(torch, np, slater, pfaffian, kernels, ph5, ph6):
+    """Phase 12: the device mesh on the card (see the module docstring).
+    Returns the worst kernel-twin difference per kernel."""
+    from temfpy_torch import config
+    from temfpy_torch.parallel import mesh as pmesh
+
+    n_cards = torch.cuda.device_count()
+    devices = ([torch.device("cuda", i) for i in range(n_cards)] if n_cards >= 2
+               else [torch.device("cuda", 0)] * 4)
+    mesh = pmesh.make_mesh(devices=devices)
+    print(f"phase 12: mesh of {'distinct cards' if n_cards >= 2 else 'logical shards of cuda:0'}"
+          f": grid {mesh.shape}, devices {[[str(d) for d in r] for r in mesh.devices]}, "
+          f"distinct {[str(d) for d in mesh.distinct]}", flush=True)
+    pairs = {("pairs", j) for j in range(mesh.shape["pairs"])}
+    chi_shards = {("chi", (k, j)) for k in range(mesh.shape["cuts"])
+                  for j in range(mesh.shape["pairs"])}
+    t0 = time.perf_counter()
+    step = pmesh.multichip_conversion_step(mesh)
+    torch.cuda.synchronize()
+    if not np.isfinite(step):
+        raise AssertionError(f"phase 12: the smoke step returned {step}")
+    print(f"phase 12: multichip_conversion_step {step:.6f} in {time.perf_counter() - t0:.2f} s "
+          "(mesh and chi-sharded conversions within 1e-12 of one device, the L=48 resident "
+          "conversion sharded and balanced)", flush=True)
+
+    worst = {"det_fill": 0.0, "site_overlap_schur": 0.0, "pf_fill": 0.0, "bdg_overlap": 0.0}
+
+    def hold_slater(key, sh, args, kw, name):
+        return hold(torch, kernels, f"phase 12 {sh}", name, key, args, kw)[1]
+
+    H, chi, L = cylinder(8, 256), 512, 256
+    prev = config.CHI_SHARD_MIN
+    try:
+        for gate in (prev, 512):
+            config.CHI_SHARD_MIN = gate
+            label = f"phase 12 (CHI_SHARD_MIN {gate})"
+            fills, overlaps = {}, {}
+            n_fill, n_over = Counter(), Counter()
+            kernels.det_fill.launches = kernels.site_overlap_schur.launches = 0
+            kernels.site_overlap_schur_gmem.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            # a chi shard's pair count varies by group: one held group per
+            # power-of-two bucket of it
+            with patched(slater, det_fill=shard_recorder(
+                    slater, "det_fill", lambda a, k: (a[2].shape[-1], k["spec"],
+                                                      1 << (a[4].shape[-1] - 1).bit_length()),
+                    fills, n_fill), site_overlap_schur=shard_recorder(
+                    slater, "site_overlap_schur", lambda a, k: (k["kb"], a[2].shape[-1], k["mode"]),
+                    overlaps, n_over)), pmesh.use_mesh(mesh):
+                t0 = time.perf_counter()
+                mps = slater.H_to_MPS(H, {"chi_max": chi})
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            launched = {"det_fill": kernels.det_fill.launches,
+                        "site_overlap_schur": kernels.site_overlap_schur.launches
+                        + kernels.site_overlap_schur_gmem.launches}
+            print(f"{label}: bench config 1 under the mesh {wall:.3f} s (phase 5 warm "
+                  f"{ph5['warm']:.3f} s, one device, the same call); max_memory_allocated "
+                  f"{peak / 2**20:.1f} MiB; launches {launched}; K1 per shard "
+                  f"{dict(sorted(n_fill.items(), key=str))}; K2 per shard "
+                  f"{dict(sorted(n_over.items(), key=str))}", flush=True)
+            if sum(n_fill.values()) != launched["det_fill"] or \
+                    sum(n_over.values()) != launched["site_overlap_schur"]:
+                raise AssertionError(f"{label}: a wrapper call launched no kernel")
+            want = pairs | (chi_shards if gate <= chi else set())
+            if set(n_fill) != want or not pairs <= set(n_over):
+                raise AssertionError(f"{label}: a shard launched nothing: K1 {set(n_fill)}, "
+                                     f"K2 {set(n_over)}")
+            held = mesh_parity(np, pmesh, ph5["state"], mps, label)
+            n_sharded, per = pmesh.residency(mps._B, mesh)
+            by_dev = Counter()
+            for i in range(L):
+                B = mps._B[i]
+                for d, b in (B.device_bytes().items() if pmesh.is_bond_sharded(B)
+                             else [(B.device, B.numel() * B.element_size())]):
+                    by_dev[str(d)] += b
+            print(f"{label}: {n_sharded} of {L} tensors bond-sharded, per-shard MiB of all "
+                  f"{[round(b / 2**20, 1) for b in per]}; per-device MiB of all "
+                  f"{ {d: round(b / 2**20, 1) for d, b in by_dev.items()} }", flush=True)
+            if gate <= chi:
+                if not (n_sharded >= L // 2 and max(per) / min(per) <= 1.01):
+                    raise AssertionError(f"{label}: {n_sharded} tensors sharded, per-shard bytes "
+                                         f"{per}")
+                t0 = time.perf_counter()
+                with pmesh.use_mesh(mesh):
+                    mps.canonical_form_finite()
+                torch.cuda.synchronize()
+                t_canon = time.perf_counter() - t0
+                n_sharded, per = pmesh.residency(mps._B, mesh)
+                res = {i: canonical_residuals(torch, mps, i)[0] for i in (0, L // 2, L - 1)}
+                print(f"{label}: canonical_form_finite under the mesh {t_canon:.3f} s; "
+                      f"{n_sharded} tensors bond-sharded, per-shard MiB of all "
+                      f"{[round(b / 2**20, 1) for b in per]}; residuals "
+                      f"{ {i: f'{r:.3e}' for i, r in res.items()} }", flush=True)
+                if not (n_sharded >= L // 2 and max(per) / min(per) <= 1.01
+                        and max(res.values()) <= 1e-10):
+                    raise AssertionError(f"{label}: after canonical_form_finite {n_sharded} "
+                                         f"sharded, per-shard bytes {per}, residuals {res}")
+            del mps
+            worst["det_fill"] = max(worst["det_fill"], hold_shards(
+                torch, kernels, f"{label}: det_fill", fills,
+                lambda k, sh, a, kw: hold_slater(k, sh, a, kw, "det_fill")))
+            wide = {g: v for g, v in overlaps.items()
+                    if not kernels.site_overlap_fits_smem(g[0][1], v[0][0].dtype)}
+            narrow = {g: v for g, v in overlaps.items() if g not in wide}
+            for name, groups in (("site_overlap_schur", narrow), ("site_overlap_schur_gmem", wide)):
+                if groups:
+                    worst["site_overlap_schur"] = max(worst["site_overlap_schur"], hold_shards(
+                        torch, kernels, f"{label}: {name}", groups,
+                        lambda k, sh, a, kw, n=name: hold_slater(k, sh, a, kw, n)))
+            del fills, overlaps
+            print(f"{label}: the state held by {held}", flush=True)
+    finally:
+        config.CHI_SHARD_MIN = prev
+
+    # bench config 5 under the mesh
+    label = "phase 12 (bench config 5)"
+    fills, overlaps = {}, {}
+    n_fill, n_over = Counter(), Counter()
+    kernels.pf_fill.launches = kernels.bdg_overlap.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    with patched(pfaffian, pf_fill=shard_recorder(
+            pfaffian, "pf_fill", lambda a, k: (k["width"], k["spec"], a[6].shape[-1]), fills,
+            n_fill), bdg_overlap=shard_recorder(
+            pfaffian, "bdg_overlap", lambda a, k: (a[0].shape[-1], a[2].shape[-1],
+                                                   a[3].shape[-1]), overlaps, n_over)), \
+            pmesh.use_mesh(mesh):
+        t0 = time.perf_counter()
+        mps = pfaffian.C_to_MPS(ph6["C"], {"chi_max": 256}, basis="M")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launched = {"pf_fill": kernels.pf_fill.launches, "bdg_overlap": kernels.bdg_overlap.launches}
+    print(f"{label}: under the mesh {wall:.3f} s (phase 6 warm {ph6['warm']:.3f} s, one "
+          f"device, K4 metered, the same call); max_memory_allocated {peak / 2**20:.1f} MiB; "
+          f"launches {launched}; K3 per shard {dict(sorted(n_fill.items(), key=str))}; K4 per "
+          f"shard {dict(sorted(n_over.items(), key=str))}", flush=True)
+    if (sum(n_fill.values()), sum(n_over.values())) != (launched["pf_fill"],
+                                                        launched["bdg_overlap"]):
+        raise AssertionError(f"{label}: a wrapper call launched no kernel")
+    if set(n_fill) != pairs or set(n_over) != pairs:
+        raise AssertionError(f"{label}: a shard launched nothing: K3 {set(n_fill)}, "
+                             f"K4 {set(n_over)}")
+    held = mesh_parity(np, pmesh, ph6["state"], mps, label)
+    failures = []
+    for name, groups in (("pf_fill", fills), ("bdg_overlap", overlaps)):
+        err = pf_err if name == "pf_fill" else bdg_err
+
+        def one(key, sh, args, kw, name=name, err=err):
+            rel, ab = err(torch, kernels, args, kw)
+            if not rel <= KERNEL_RTOL:
+                failures.append(f"{name} {key} {sh}: rel err {rel:.3e} > {KERNEL_RTOL}")
+            return ab
+        worst[name] = hold_shards(torch, kernels, f"{label}: {name}", groups, one)
+    if failures:
+        raise AssertionError(f"{label}: " + "; ".join(failures))
+    print(f"{label}: the state held by {held}", flush=True)
+    return worst
+
+
+def mesh_only(torch, np, slater, pfaffian, kernels, testing) -> int:
+    """``--mesh-only``: phase 12 alone, on every card torch sees, beside warm
+    one-device conversions of bench configs 1 and 5 made here (the calls of
+    phases 5 and 6, without their checks).  Prints no result line."""
+    os.environ["TEMFPY_TORCH_DET_UPDATES"] = "0"
+    H = cylinder(8, 256)
+    C = pfaffian.correlation_matrix(testing.pip_hamiltonian(8, 16), basis="C->M", device="cuda")
+    runs = {}
+    for key, run in (("5", lambda: slater.H_to_MPS(H, {"chi_max": 512}, device="cuda")),
+                     ("6", lambda: pfaffian.C_to_MPS(C, {"chi_max": 256}, basis="M",
+                                                     device="cuda"))):
+        for _ in range(2):  # cold, then warm
+            t0 = time.perf_counter()
+            state = run()
+            torch.cuda.synchronize()
+            runs[key] = {"state": state, "warm": time.perf_counter() - t0}
+    runs["6"]["C"] = C
+    t0 = time.perf_counter()
+    worst = phase_mesh(torch, np, slater, pfaffian, kernels, runs["5"], runs["6"])
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s; worst kernel-twin differences {worst}",
+          flush=True)
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:] not in ([], ["--mesh-only"]):
+        print("usage: chip_smoke.py [--mesh-only]", file=sys.stderr)
+        return 2
     if not (ROOT / "temfpy_torch" / "__init__.py").is_file():
         print("chip_smoke: the temfpy_torch package is not beside this script",
               file=sys.stderr)
@@ -3562,6 +3831,8 @@ def main() -> int:
     _build.load()
     print(f"phase 2: kernels built and loaded in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.build_seconds})", flush=True)
+    if sys.argv[1:] == ["--mesh-only"]:
+        return mesh_only(torch, np, slater, pfaffian, kernels, testing)
 
     t_start = time.perf_counter()
 
@@ -3603,6 +3874,7 @@ def main() -> int:
     # phase 8 reads its own counts; det_fill and site_overlap_schur keep
     # phase 5's (their slice), their errors take the worst of both
     n8, r8 = phase_swap_slice(torch, np, slater, fw, kernels, profiling, direct)
+    ph5 = {"state": direct["raw"], "warm": direct["warm"]}
     del direct
     elapsed("phase 8")
     for k in SWAP_KERNELS:
@@ -3612,10 +3884,15 @@ def main() -> int:
         launches["det_rows"] = rows_4e["det_rows"]
     for k in ("det_fill", "site_overlap_schur"):
         rec[k]["max_abs_err"] = max(rec[k]["max_abs_err"], r8[k]["max_abs_err"])
-    n, r = phase_pfaffian_full(torch, np, pfaffian, kernels, profiling, testing)
+    n, r, ph6 = phase_pfaffian_full(torch, np, pfaffian, kernels, profiling, testing)
     launches.update(n)
     rec.update(r)
     elapsed("phase 6")
+    # phase 12 checks that its kernels launched on every shard; their
+    # errors take the worst
+    worst12 = phase_mesh(torch, np, slater, pfaffian, kernels, ph5, ph6)
+    del ph5, ph6
+    elapsed("phase 12")
     # phase 7 reads its own counts; det_fill and site_overlap_schur keep
     # phase 5's (their slice), their errors take the worst of both
     n7, r7, ph7 = phase_slice(torch, np, slater, fw, kernels, profiling)
@@ -3641,7 +3918,7 @@ def main() -> int:
     elapsed("phase 10")
     _n11, worst11 = phase_imps(torch, np, slater, pfaffian, fw, kernels, testing)
     elapsed("phase 11")
-    for k, ab in list(worst10.items()) + list(worst11.items()):
+    for k, ab in list(worst10.items()) + list(worst11.items()) + list(worst12.items()):
         rec[k]["max_abs_err"] = max(rec[k]["max_abs_err"], ab)
     for k, ab in list(worst.items()) + list(worst_swap.items()) + list(worst_rsf.items()):
         rec[k]["max_abs_err"] = max(rec[k]["max_abs_err"], ab)

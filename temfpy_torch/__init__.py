@@ -26,11 +26,16 @@ Ported so far:
   (:mod:`temfpy_torch.mps`);
 - the hand-written CUDA kernels of those paths, 13 sources under
   ``temfpy_torch/csrc/`` built with nvcc at first use, each behind a
-  wrapper in :mod:`temfpy_torch.ops.kernels` beside its plain PyTorch twin.
+  wrapper in :mod:`temfpy_torch.ops.kernels` beside its plain PyTorch twin;
+- one conversion over several shards (:mod:`temfpy_torch.parallel`: a mesh
+  of cards, or of logical shards of one card or of the CPU) and ``.npz``
+  checkpoints that both packages read (:func:`temfpy_torch.mps.io.save_mps`).
 
 The entry points run on the card unless the caller passes
 ``device="cpu"``.
 """
+
+import logging as _logging
 
 __version__ = "0.1.0"
 
@@ -40,6 +45,7 @@ __all__ = [
     "iMPS",
     "mps",
     "ops",
+    "parallel",
     "pfaffian",
     "profiling",
     "schmidt_utils",
@@ -47,6 +53,11 @@ __all__ = [
     "testing",
     "utils",
 ]
+
+
+def setup_logging(level=_logging.INFO):
+    """Basic logging config, mirroring the reference ``temfpy.setup_logging``."""
+    _logging.basicConfig(level=level)
 
 
 def __getattr__(name):

@@ -87,7 +87,7 @@ constexpr int kWideBytes = (32 * 32 + 32) * sizeof(c128) + 32 * sizeof(int);
 struct PfArgs {
     const c128* N;
     const double* norm;
-    const int *pos_b, *pos_k, *cnt_b, *cnt_k, *pr, *pc, *tab0, *tab1, *tab2;
+    const int *pos_b, *pos_k, *cnt_b, *cnt_k, *pr, *pc, *tab0, *tab1, *tab2, *slot;
     c128* out;
     int m, wt, R_b, K_b, P_b, n0, n1, n2, sel, D0p1, D1, D2, pairs_per_block, stage;
 };
@@ -107,12 +107,13 @@ struct Chunk {
     int r, c, nk, key, poison, src;
 };
 
-// T[g, tab0[..], tab1[..], tab2[..]] = norm[g] * pf for pair (r, c) of site g.
+// out[slot[g], tab0[..], tab1[..], tab2[..]] = norm[g] * pf for pair (r, c)
+// of site g.
 __device__ __forceinline__ void pf_store(const PfArgs& a, int g, int r, int c, c128 pf) {
     const int c0 = a.tab0[(long long)g * a.n0 + ((a.sel & 1) ? c : r)];
     const int c1 = a.tab1[(long long)g * a.n1 + ((a.sel & 2) ? c : r)];
     const int c2 = a.n2 ? a.tab2[(long long)g * a.n2 + ((a.sel & 4) ? c : r)] : 0;
-    a.out[(((long long)g * a.D0p1 + c0) * a.D1 + c1) * a.D2 + c2] = pf * a.norm[g];
+    a.out[(((long long)a.slot[g] * a.D0p1 + c0) * a.D1 + c1) * a.D2 + c2] = pf * a.norm[g];
 }
 
 // The pairs of ranks [lo, hi) of a warp's sorted chunk, all of tot <= TW,
@@ -283,7 +284,8 @@ __global__ void __launch_bounds__(kPfThreads, 4) pf_fill_kernel(PfArgs a) {
 // site's N in shared memory, after the wide tier's matrices at width > 16.
 extern "C" int tf_pf_fill(const void* N, const double* norm, const int* pos_b, const int* pos_k,
                           const int* cnt_b, const int* cnt_k, const int* pr, const int* pc,
-                          const int* tab0, const int* tab1, const int* tab2, void* out, int G,
+                          const int* tab0, const int* tab1, const int* tab2, const int* slot,
+                          void* out, int G,
                           int m, int width, int wt, int R_b, int K_b, int P_b, int n0, int n1,
                           int n2, int sel, int D0p1, int D1, int D2, int pairs_per_block,
                           int threads, int stage, void* stream) {
@@ -294,7 +296,7 @@ extern "C" int tf_pf_fill(const void* N, const double* norm, const int* pos_b, c
         pairs_per_block % threads || staged > kStageBytes)
         return (int)cudaErrorInvalidValue;
     const PfArgs a{(const c128*)N, norm, pos_b, pos_k, cnt_b, cnt_k, pr, pc, tab0, tab1, tab2,
-                   (c128*)out, m, wt, R_b, K_b, P_b, n0, n1, n2, sel, D0p1, D1, D2,
+                   slot, (c128*)out, m, wt, R_b, K_b, P_b, n0, n1, n2, sel, D0p1, D1, D2,
                    pairs_per_block, stage};
     const dim3 grid((P_b + pairs_per_block - 1) / pairs_per_block, G);
     cudaStream_t s = (cudaStream_t)stream;

@@ -12,10 +12,12 @@ tensors' own device, the physical indices are selected, the virtual bonds
 are masked by their charge labels, and the result is brought back into
 canonical form by the charge-aware sweeps of
 :class:`temfpy_torch.mps.MPS` (finite or infinite).  One pair is the working
-set: the chain is never gathered.
+set: the chain is never gathered, and under an active mesh
+(:mod:`temfpy_torch.parallel.mesh`) each projected pair is stored
+bond-sharded.
 
-Not ported (TPU workarounds of the JAX package): the numpy/device switch of
-``_project`` and its mesh residency helpers.
+Not ported (a TPU workaround of the JAX package): the numpy/device switch
+of ``_project``.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from .mps import MPS, FermionSite, SpinHalfSite
+from .parallel import mesh as _pmesh
 
 logger = logging.getLogger(__name__)
 
@@ -61,12 +64,14 @@ def _validate(mps: MPS, unit_cell_width: int | None, group: int = 2) -> int:
     return unit_cell_width
 
 
-def _exact_cell_tensors(mps: MPS):
-    """Tensors whose plain contraction is the state: the exact tensors of a
-    finite MPS, the B-form tensors of an infinite one."""
+def _exact_cell_tensor(mps: MPS):
+    """Site i of the tensors whose plain contraction is the state (the
+    exact tensors of a finite MPS, the B-form tensors of an infinite one),
+    as a function of i that reads one site."""
     if mps.finite:
-        return mps.exact_tensors()
-    return [mps.get_B(i, "B") for i in range(mps.L)]
+        c = mps._junction()
+        return lambda i: mps._exact_tensor(i, c)
+    return lambda i: mps.get_B(i, "B")
 
 
 def _total_physical_charge(mps: MPS) -> int:
@@ -79,7 +84,7 @@ def _project(mps: MPS, keep, bond_mask, spin_site: SpinHalfSite, new_q_bond) -> 
     pair occupations (n_up, n_down) of spin up (index 0) and down (1);
     ``bond_mask(q, i)`` the kept indices of new bond i from the fermionic
     labels q; ``new_q_bond(q, i, mask)`` their new labels."""
-    G = _exact_cell_tensors(mps)
+    site = _exact_cell_tensor(mps)
     L2 = mps.L // 2
     # an infinite MPS's wrap bond reuses bond 0's mask (reference
     # gutzwiller.py:237)
@@ -92,13 +97,16 @@ def _project(mps: MPS, keep, bond_mask, spin_site: SpinHalfSite, new_q_bond) -> 
             raise ValueError(
                 f"Gutzwiller projection kills the state: empty bond sector at pair {i} (check "
                 "q_left/parity/offset and the input charges)")
-        A, B = G[2 * i], G[2 * i + 1]
+        # one pair is the working set, read and held in locals; under a
+        # mesh the projected pair keeps its bond axis sharded
+        # (temfpy_tpu/gutzwiller.py:107-125)
+        A, B = site(2 * i), site(2 * i + 1)
         dev = A.device
         T = torch.einsum("anb,bmc->anmc", A, B)
         P = torch.stack([T[:, n, m, :] for (n, m) in keep], dim=1)
         rows = torch.as_tensor(np.nonzero(masks[i])[0], device=dev)
         cols = torch.as_tensor(np.nonzero(masks[i + 1])[0], device=dev)
-        tensors.append(P[rows][:, :, cols])
+        tensors.append(_pmesh.bond_shard_put(P[rows][:, :, cols]))
         q_bonds.append(new_q_bond(mps.q_bond[2 * i], i, masks[i]))
         # the pair keeps the pair's tensor charge: the relabeling shifts
         # cancel between the two bond ends (qL' - qR' moves by +1, the

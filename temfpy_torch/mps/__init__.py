@@ -9,4 +9,4 @@ from .charges import ChargeInfo  # noqa: F401
 from .site import FermionSite, SpinHalfSite, Site  # noqa: F401
 from .mps import MPS  # noqa: F401
 from .charged_linalg import charged_eigh, charged_svd, charged_qr  # noqa: F401
-from .io import mps_from_arrays  # noqa: F401
+from .io import load_mps, mps_from_arrays, save_mps  # noqa: F401

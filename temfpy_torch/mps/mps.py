@@ -14,9 +14,13 @@ Conventions (as in the JAX package):
   An infinite cell may carry a constant charge drift per cell:
   ``q_bond[L] == q_bond[0] + delta``.
 
-Contractions run in torch on the tensors' device.  Not ported (TPU
-workarounds of the JAX package): ``device_context`` (the CPU reroute) and
-the mesh residency of the canonical sweeps.
+Contractions run in torch on the tensors' device.  Under an active mesh
+(:mod:`temfpy_torch.parallel.mesh`) a site tensor may be held bond-sharded
+over the mesh's shards; every reader of the site tensors goes through one
+accessor (:meth:`MPS._tensor`), which gathers one site at a time, and
+:meth:`MPS.canonical_form_finite` keeps the tensors it stores sharded.  Not
+ported (a TPU workaround of the JAX package): ``device_context`` (the CPU
+reroute).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from ..ops.linalg import robust_eigh, robust_qr, robust_svd
+from ..parallel import mesh as _pmesh
 from .charged_linalg import charged_eigh, charged_qr, charged_svd
 from .charges import ChargeInfo, NO_CHARGE, fuse, sectors_of
 from .site import GroupedSite, Site
@@ -36,6 +41,8 @@ logger = logging.getLogger(__name__)
 
 
 def _as_tensor(B, device) -> torch.Tensor:
+    if _pmesh.is_bond_sharded(B):  # kept sharded; gathered where moved
+        return B if device is None or torch.device(device) == B.device else B.gather(device)
     if isinstance(B, torch.Tensor):
         return B if device is None else B.to(device)
     return torch.as_tensor(np.asarray(B), device=device)
@@ -138,7 +145,7 @@ class MPS:
         ``q_bonds``, ``qtotals``, ``form``, ``bc``, ``unit_cell_width``
         (the arguments of :func:`temfpy_torch.mps.io.mps_from_arrays`)."""
         return {
-            "tensors": [B.detach().cpu().numpy() for B in self._B],
+            "tensors": [self._tensor(i).detach().cpu().numpy() for i in range(self.L)],
             "lams": [None if s is None else s.copy() for s in self._S],
             "q_bonds": [q.copy() for q in self.q_bond],
             "qtotals": self.qtotal.copy(),
@@ -212,7 +219,7 @@ class MPS:
         if not self.finite or imps.finite:
             raise ValueError("splice inserts an infinite unit cell into a finite MPS")
         cell = imps.L
-        cell_B = [B.to(self.device) for B in imps._B]
+        cell_B = [imps._tensor(j).to(self.device) for j in range(imps.L)]
         return MPS(self.sites[:cut] + imps.sites * n_cells + self.sites[cut:],
                    list(self._B[:cut]) + cell_B * n_cells + list(self._B[cut:]),
                    list(self._S[:cut]) + [imps._S[j] for j in range(cell)] * n_cells
@@ -257,12 +264,18 @@ class MPS:
             S = np.where(S > cutoff, 1.0 / np.maximum(S, cutoff), 0.0)
         return torch.as_tensor(S, device=self.device)
 
+    def _tensor(self, i: int) -> torch.Tensor:
+        """Site tensor i as stored, as a plain tensor: the one reader of
+        ``_B`` (a bond-sharded tensor of a mesh run is gathered onto its
+        first shard's device, one site at a time)."""
+        return _pmesh.gather_replicated(self._B[i])
+
     def get_B(self, i: int, form: str = "B") -> torch.Tensor:
         """Site tensor in the requested canonical form ('A', 'B', 'Th', 'G');
         on an infinite MPS ``i`` is taken modulo L."""
         if not self.finite:
             i = i % self.L
-        T = self._B[i]
+        T = self._tensor(i)
         have = self.form[i]
         if have is None:
             raise ValueError(f"tensor {i} has no canonical form")
@@ -285,6 +298,13 @@ class MPS:
         """Tensors whose plain contraction is the (normalised) state: the
         Schmidt values at the A|B junction are absorbed.  Needs a finite MPS
         with every form 'A' or 'B', all 'A's left of all 'B's."""
+        c = self._junction()
+        return [self._exact_tensor(i, c) for i in range(self.L)]
+
+    def _junction(self) -> int:
+        """The first 'B' site of a finite MPS in mixed canonical form (L if
+        none), where :meth:`exact_tensors` absorbs the Schmidt values;
+        raises ValueError for any other state."""
         if not self.finite:
             raise ValueError("exact_tensors is for finite MPS")
         forms = self.form
@@ -293,12 +313,16 @@ class MPS:
         c = forms.index("B") if "B" in forms else self.L
         if not (all(f == "A" for f in forms[:c]) and all(f == "B" for f in forms[c:])):
             raise ValueError(f"mixed-up forms {forms}")
-        out = list(self._B)
-        if c < self.L:
-            out[c] = self._dS(c)[:, None, None] * out[c]
-        else:
-            out[-1] = out[-1] * self._dS(self.L)[None, None, :]
-        return out
+        return c
+
+    def _exact_tensor(self, i: int, c: int) -> torch.Tensor:
+        """Site i of :meth:`exact_tensors` for the junction ``c``."""
+        T = self._tensor(i)
+        if i == c:
+            return self._dS(c)[:, None, None] * T
+        if c == self.L and i == self.L - 1:
+            return T * self._dS(self.L)[None, None, :]
+        return T
 
     # ------------------------------------------------------------------
     # contractions
@@ -560,34 +584,43 @@ class MPS:
         """Brings the MPS into right-canonical form with Schmidt values on
         every bond: a left-to-right charged QR sweep, then a right-to-left
         charged SVD sweep truncating singular values below ``cutoff``
-        (relative) and beyond ``chi_max``."""
+        (relative) and beyond ``chi_max``.
+
+        Under an active mesh every tensor the sweeps store keeps its bond
+        axis split over the shards (:func:`temfpy_torch.parallel.mesh.
+        bond_shard_put`) and each step gathers one site: the working set is
+        one site, the chain stays sharded (``temfpy_tpu/mps/mps.py:744-766``).
+        The factorizations are those of the unsharded sweep, so the result
+        is the same."""
         if not self.finite:
             raise ValueError("canonical_form_finite is for finite MPS")
         L = self.L
         chinfo = self.chinfo
         try:
-            G = self.exact_tensors()
+            c = self._junction()
+            site = lambda i: self._exact_tensor(i, c)  # noqa: E731
         except ValueError:
-            G = list(self._B)
+            site = self._tensor
+        shard, gather = _pmesh.bond_shard_put, _pmesh.gather_replicated
         qt = self.qtotal.copy()
         dev = self.device
-        carry = torch.ones((1, 1), dtype=G[0].dtype, device=dev)
+        carry = torch.ones((1, 1), dtype=self._B[0].dtype, device=dev)
         q_carry = self.q_bond[0].copy()
         A_list, q_bonds = [], [self.q_bond[0].copy()]
         for i in range(L):
             d = self.sites[i].d
-            T = torch.einsum("ab,bnc->anc", carry, G[i])
+            T = torch.einsum("ab,bnc->anc", carry, site(i))
             chiL, _, chiR = T.shape
             q_row = (q_carry[:, None] + self.sites[i].charges[None, :]).reshape(-1)
             Q, R, q_mid = charged_qr(T.reshape(chiL * d, chiR), q_row, self.q_bond[i + 1],
                                      chinfo, qtotal=int(qt[i]))
-            A_list.append(Q.reshape(chiL, d, Q.shape[1]))
+            A_list.append(shard(Q.reshape(chiL, d, Q.shape[1])))
             carry = R
             q_carry = chinfo.make_valid(np.asarray(q_mid) + qt[i])
             q_bonds.append(q_carry.copy())
             qt[i] = 0
         norm = float(torch.linalg.norm(carry))
-        A_list[-1] = torch.einsum("anb,bc->anc", A_list[-1], carry / norm)
+        A_list[-1] = shard(torch.einsum("anb,bc->anc", gather(A_list[-1]), carry / norm))
 
         B_list = [None] * L
         S_list = [None] * (L + 1)
@@ -595,7 +628,8 @@ class MPS:
         q_bonds[L] = q_bonds[L][:1] if len(q_bonds[L]) else np.zeros(1, np.int64)
         carry = None
         for i in reversed(range(L)):
-            T = A_list[i]
+            T = gather(A_list[i])
+            A_list[i] = None  # the sweep holds one site
             if carry is not None:
                 T = torch.einsum("anb,bc->anc", T, carry)
             chiL, d, chiR = T.shape
@@ -603,11 +637,11 @@ class MPS:
             U, S, Vh, q_mid, _err = charged_svd(
                 T.reshape(chiL, d * chiR), q_bonds[i], q_col, chinfo, qtotal=0,
                 cutoff=cutoff, chi_max=chi_max, normalize=True)
-            B_list[i] = Vh.reshape(Vh.shape[0], d, chiR)
+            B_list[i] = shard(Vh.reshape(Vh.shape[0], d, chiR))
             S_list[i] = S
             q_bonds[i] = chinfo.make_valid(np.asarray(q_mid))
             carry = U * torch.as_tensor(S, device=dev)[None, :]
-        B_list[0] = torch.einsum("ab,bnc->anc", carry, B_list[0])
+        B_list[0] = shard(torch.einsum("ab,bnc->anc", carry, gather(B_list[0])))
         S_list[0] = np.ones(1)
 
         self._B = B_list
@@ -647,7 +681,7 @@ class MPS:
         if self.finite:
             raise ValueError("canonical_form_infinite is for infinite MPS")
         L = self.L
-        T = list(self._B)
+        T = [self._tensor(i) for i in range(L)]
         dev, dtype = self.device, T[0].dtype
         stats = {"fallbacks": 0, "matvecs": 0, "arpack_failures": 0}
         chinfo = self.chinfo

@@ -59,7 +59,7 @@ _SIGNATURES = {
     # N, norm, pos_b, pos_k, cnt_b, cnt_k, pr, pc, tab0, tab1, tab2, out,
     # G, m, width, wt, R_b, K_b, P_b, n0, n1, n2, sel, D0p1, D1, D2,
     # pairs_per_block, threads, stage, stream
-    "tf_pf_fill": [_vp] * 12 + [_i] * 17 + [_vp],
+    "tf_pf_fill": [_vp] * 13 + [_i] * 17 + [_vp],
     # dtype, M, scale, idx_b, idx_k, out, G, m, w, nb, nk, cross,
     # dets_per_block, threads, stage, stream
     "tf_det_rows": [_i] + [_vp] * 5 + [_i] * 9 + [_vp],

@@ -760,7 +760,7 @@ def pf_fill_geometry(width: int, P_b: int, G: int, m: int) -> dict:
 
 
 def pf_fill_plain(N, norm, pos_b, pos_k, cnt_b, cnt_k, pr, pc, tabs, *, width: int,
-                  spec: str, shape: tuple):
+                  spec: str, shape: tuple, out=None, slot=None):
     """Plain PyTorch twin of the ``pf_fill`` kernel
     (``temfpy_tpu/ops/pfaffian.py:_pf_pairs_impl`` on the index rows of
     ``_derive_pair_indices``, times the norm, scattered as
@@ -772,24 +772,26 @@ def pf_fill_plain(N, norm, pos_b, pos_k, cnt_b, cnt_k, pr, pc, tabs, *, width: i
     scatter tables ``tabs`` (three (G, n_i) tensors, each indexed by the
     bra or the ket id as ``spec`` says), ``width`` the even index-row
     width and ``shape`` the bucketed tensor shape.  Each pair's value
-    ``norm * Pf(N_aug[ix, ix])`` is set at its coordinate; pad pairs go to
-    the trash row ``shape[0]``, which is cut off.  Pairs run in chunks of
-    ``_PF_PAIR_CHUNK``."""
+    ``norm * Pf(N_aug[ix, ix])`` is set at its coordinate of slot
+    ``slot[g]`` of ``out`` (:func:`fill_buffer`; a fresh buffer where
+    ``out`` is None); pad pairs go to the trash row ``shape[0]``, which is
+    cut off.  Returns the buffer without its trash rows, (S, *shape).
+    Pairs run in chunks of ``_PF_PAIR_CHUNK``."""
     G, m = N.shape[0], N.shape[-1]
-    out = torch.zeros((G, shape[0] + 1) + tuple(shape[1:]), dtype=N.dtype, device=N.device)
+    out, slot = fill_buffer(out, slot, G, shape, N.dtype, N.device)
     for g in range(G):
         idx = derive_pair_indices(pos_b[g], pos_k[g], cnt_b[g], cnt_k[g], pr[g], pc[g],
                                   width, m)
         vals = batched_pfaffian_pairs(N[g], idx, pad_slots=width, chunk=_PF_PAIR_CHUNK) * norm[g]
         sel = {"r": pr[g].long(), "c": pc[g].long()}
         coords = tuple(tabs[i][g][sel[s]].long() for i, s in enumerate(spec))
-        out[g][coords] = vals
+        out[slot[g]][coords] = vals
     return out[:, : shape[0]]
 
 
 def pf_fill(N, norm, pos_b, pos_k, cnt_b, cnt_k, pr, pc, tabs, *, width: int, spec: str,
-            shape: tuple):
-    """Pair-Pfaffian fill of a group of G sites (arguments as in
+            shape: tuple, out=None, slot=None):
+    """Pair-Pfaffian fill of a group of G sites (arguments and result as in
     :func:`pf_fill_plain`; on CUDA every index tensor is int32, ``N``
     complex128, ``norm`` float64 and ``width`` at most 32).  CPU tensors
     run the twin; CUDA tensors launch ``csrc/pf_fill.cu``."""
@@ -802,7 +804,7 @@ def pf_fill(N, norm, pos_b, pos_k, cnt_b, cnt_k, pr, pc, tabs, *, width: int, sp
     dev = N.device
     if dev.type == "cpu":
         return pf_fill_plain(N, norm, pos_b, pos_k, cnt_b, cnt_k, pr, pc, tabs, width=width,
-                             spec=spec, shape=shape)
+                             spec=spec, shape=shape, out=out, slot=slot)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     from . import _build
@@ -831,7 +833,9 @@ def pf_fill(N, norm, pos_b, pos_k, cnt_b, cnt_k, pr, pc, tabs, *, width: int, sp
             raise ValueError(f"{name} has {t.shape[0]} sites, expected {G}")
     D1 = shape[1]
     D2 = shape[2] if len(shape) == 3 else 1
-    out = torch.zeros((G, shape[0] + 1, D1, D2), dtype=N.dtype, device=dev)
+    out, slot = fill_buffer(out, slot, G, shape, N.dtype, dev)
+    # from pinned memory: the copy does not wait for the stream
+    slot_t = torch.tensor(slot, dtype=torch.int32).pin_memory().to(dev, non_blocking=True)
     n2 = t2.shape[1] if len(shape) == 3 else 0
     geo = pf_fill_geometry(width, pr.shape[1], G, m)
     lib = _build.load()
@@ -839,14 +843,14 @@ def pf_fill(N, norm, pos_b, pos_k, cnt_b, cnt_k, pr, pc, tabs, *, width: int, sp
         err = lib.tf_pf_fill(
             N.data_ptr(), norm.data_ptr(), pos_b.data_ptr(), pos_k.data_ptr(),
             cnt_b.data_ptr(), cnt_k.data_ptr(), pr.data_ptr(), pc.data_ptr(),
-            t0.data_ptr(), t1.data_ptr(), t2.data_ptr(), out.data_ptr(),
+            t0.data_ptr(), t1.data_ptr(), t2.data_ptr(), slot_t.data_ptr(), out.data_ptr(),
             G, m, width, wt, R_b, K_b, pr.shape[1], t0.shape[1], t1.shape[1], n2,
             SPECS[spec], shape[0] + 1, D1, D2, geo["pairs_per_block"], geo["threads"],
             int(geo["stage"]), _stream_ptr(dev),
         )
     _raise_on(err, "pf_fill")
     pf_fill.launches += 1
-    return out[:, : shape[0]].reshape((G,) + tuple(shape))
+    return out[:, : shape[0]]
 
 
 pf_fill.launches = 0

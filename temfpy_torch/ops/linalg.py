@@ -23,8 +23,7 @@ Counterpart of the main-path subset of :mod:`temfpy_tpu.ops.linalg`:
 Not ported (TPU workarounds): the host-eigh routing (``_eigh_blocks_host``,
 ``_use_host_eigh``, ``_back_like``), the batch-last layouts with implicit
 pivoting (``_lu_det_batch_last``, ``_gauss_solve_det_implicit``), the
-one-hot MXU selection (``_onehot_select``, ``_split_f32``) and the mesh
-branch of ``eigh_blocks``; the per-class vmaps (``det_swap_tables_group``,
+one-hot MXU selection (``_onehot_select``, ``_split_f32``); the per-class vmaps (``det_swap_tables_group``,
 ``_det_swaps_group``, ``_det_check_group``, ``_swap_probe_group``: each
 kernel takes a whole group) and ``_bmm_small`` (an emulated-float64
 matmul).
@@ -74,11 +73,25 @@ def eigh_blocks(C: torch.Tensor, sizes, side: str = "L", chunk: int | None = Non
     belong to the block, the rest are 2.0) and ``v`` (ncuts, L, L)
     eigenvector columns, whose block vectors live in coordinates 0..x-1
     (side "L") or L-x..L-1 (side "R").  ``chunk`` bounds the batch per
-    ``eigh`` call.
+    ``eigh`` call.  Under an active mesh
+    (:class:`temfpy_torch.parallel.mesh.use_mesh`) the cut batch splits over
+    its "cuts" axis (:func:`temfpy_torch.parallel.mesh.sharded_schmidt_spectra`)
+    and the results come back to C's device.
     """
     if side not in ("L", "R"):
         raise ValueError(f"side must be 'L' or 'R', got {side!r}")
+    from ..parallel import mesh as _pmesh
+
+    mesh = _pmesh.active_mesh()
+    if mesh is not None:
+        return _pmesh.sharded_schmidt_spectra(C, sizes, side, mesh, chunk=chunk,
+                                              device=C.device)
     sizes = torch.as_tensor(np.asarray(sizes, np.int64), device=C.device)
+    return _eigh_blocks_chunked(C, sizes, side, chunk)
+
+
+def _eigh_blocks_chunked(C: torch.Tensor, sizes: torch.Tensor, side: str, chunk: int | None):
+    """:func:`eigh_blocks` on C's device, ``chunk`` cuts per ``eigh``."""
     n = sizes.shape[0]
     if chunk is None or n <= chunk:
         return _eigh_blocks_impl(C, sizes, side)
@@ -251,7 +264,9 @@ def batched_det_pairs(M: torch.Tensor, row_idx, col_idx, chunk: int | None = Non
     block_diag(M, I_k)``, so an all-sentinel row gives 1.  On a CUDA tensor
     ``M`` this launches the ``det_rows`` kernel (a lane segment per
     determinant, k <= 64), on a CPU tensor its twin; ``chunk`` bounds the
-    pairs per launch.  Returns (P,) values on M's device."""
+    pairs per launch; under an active mesh the pairs split over its "pairs"
+    axis.  Returns (P,) values on M's device."""
+    from ..parallel.mesh import map_shards
     from .kernels import det_rows
 
     row_idx, col_idx = _as_index(row_idx, M.device), _as_index(col_idx, M.device)
@@ -261,19 +276,26 @@ def batched_det_pairs(M: torch.Tensor, row_idx, col_idx, chunk: int | None = Non
     P, k = row_idx.shape
     if k == 0:
         return torch.ones(P, dtype=M.dtype, device=M.device)
-    M = M.contiguous()[None]
-    step = P if chunk is None or P <= chunk else chunk
-    outs = [det_rows(M, row_idx[None, i : i + step], col_idx[None, i : i + step])[0]
-            for i in range(0, P, max(step, 1))]
-    return torch.cat(outs) if outs else M.new_ones(0)
+
+    def local(r, c, M_d):
+        M_d = M_d.contiguous()[None]
+        n = r.shape[0]
+        step = n if chunk is None or n <= chunk else chunk
+        outs = [det_rows(M_d, r[None, i : i + step], c[None, i : i + step])[0]
+                for i in range(0, n, max(step, 1))]
+        return torch.cat(outs) if outs else M_d.new_ones(0)
+
+    return map_shards(local, (row_idx, col_idx), (M,))
 
 
 def batched_det_gather(M: torch.Tensor, bra_idx, ket_idx, chunk: int | None = None):
     """Determinants ``det(M_aug[bra_idx[i]][:, ket_idx[j]])`` for all pairs
     (i, j) (``temfpy_tpu.ops.linalg.batched_det_gather``); sentinels as in
     :func:`batched_det_pairs`, whose kernel (or twin) this launches in its
-    all-pairs form.  ``chunk`` bounds the bra rows per launch.  Returns
-    (nb, nk) values on M's device."""
+    all-pairs form.  ``chunk`` bounds the bra rows per launch; under an
+    active mesh the bra rows split over its "pairs" axis.  Returns (nb, nk)
+    values on M's device."""
+    from ..parallel.mesh import map_shards
     from .kernels import det_rows
 
     bra_idx, ket_idx = _as_index(bra_idx, M.device), _as_index(ket_idx, M.device)
@@ -283,11 +305,16 @@ def batched_det_gather(M: torch.Tensor, bra_idx, ket_idx, chunk: int | None = No
     nb, nk = bra_idx.shape[0], ket_idx.shape[0]
     if k == 0:
         return torch.ones((nb, nk), dtype=M.dtype, device=M.device)
-    M = M.contiguous()[None]
-    step = nb if chunk is None or nb <= chunk else chunk
-    outs = [det_rows(M, bra_idx[None, i : i + step], ket_idx[None], cross=True)[0]
-            for i in range(0, nb, max(step, 1))]
-    return torch.cat(outs) if outs else M.new_ones((0, nk))
+
+    def local(b, k_idx, M_d):
+        M_d = M_d.contiguous()[None]
+        n = b.shape[0]
+        step = n if chunk is None or n <= chunk else chunk
+        outs = [det_rows(M_d, b[None, i : i + step], k_idx[None], cross=True)[0]
+                for i in range(0, n, max(step, 1))]
+        return torch.cat(outs) if outs else M_d.new_ones((0, nk))
+
+    return map_shards(local, (bra_idx,), (ket_idx, M))
 
 
 # --------------------------------------------------------------------------

@@ -25,6 +25,7 @@ Pfaffians) launches the ``pf_gather`` kernel on a CUDA tensor and its twin
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -124,19 +125,24 @@ def batched_pfaffian_pairs(N: torch.Tensor, idx: torch.Tensor, pad_slots: int,
     Index values >= ``N.shape[0]`` address the symplectic extension of
     ``N`` by ``pad_slots`` rows; each row's padding is a contiguous, even
     tail of consecutive sentinels starting at ``N.shape[0]``, so the padded
-    Pfaffian equals the unpadded one.  An all-sentinel row gives 1."""
+    Pfaffian equals the unpadded one.  An all-sentinel row gives 1.  Under
+    an active mesh the rows split over its "pairs" axis."""
     w = idx.shape[1]
     if w == 0:
         return torch.ones(idx.shape[0], dtype=N.dtype, device=N.device)
     if w % 2:
         raise ValueError("total index count per row must be even")
-    N_aug = symplectic_pad(N, pad_slots) if pad_slots else N
-    idx = idx.long()
-    P = idx.shape[0]
-    step = P if chunk is None else max(1, chunk)
-    out = [batched_pfaffian(N_aug[idx[i : i + step, :, None], idx[i : i + step, None, :]])
-           for i in range(0, P, step)]
-    return torch.cat(out) if out else N.new_ones(0)
+    from ..parallel.mesh import map_shards
+
+    def local(ix, N_aug):
+        ix = ix.long()
+        P = ix.shape[0]
+        step = P if chunk is None else max(1, chunk)
+        out = [batched_pfaffian(N_aug[ix[i : i + step, :, None], ix[i : i + step, None, :]])
+               for i in range(0, P, step)]
+        return torch.cat(out) if out else N_aug.new_ones(0)
+
+    return map_shards(local, (idx,), (symplectic_pad(N, pad_slots) if pad_slots else N,))
 
 
 def batched_pfaffian_gather(N: torch.Tensor, bra_idx, ket_idx, pad_slots: int,
@@ -151,8 +157,9 @@ def batched_pfaffian_gather(N: torch.Tensor, bra_idx, ket_idx, pad_slots: int,
     use its padding slots as a contiguous, even-aligned run (callers pad
     only the tail of ``bra_idx``).  On a CUDA tensor ``N`` this launches the
     ``pf_gather`` kernel (one warp per pair, total width <= 32), on a CPU
-    tensor its twin; ``chunk`` bounds the bra rows per launch.  Returns
-    (nb, nk) on N's device."""
+    tensor its twin; ``chunk`` bounds the bra rows per launch, and under an
+    active mesh the bra rows split over its "pairs" axis.  Returns (nb, nk)
+    on N's device."""
     from .kernels import pf_gather
     from .linalg import _as_index
 
@@ -163,7 +170,41 @@ def batched_pfaffian_gather(N: torch.Tensor, bra_idx, ket_idx, pad_slots: int,
         return torch.ones((nb, nk), dtype=N.dtype, device=N.device)
     if k % 2:
         raise ValueError("total excitation count per pair must be even")
-    step = nb if chunk is None or nb <= chunk else chunk
-    outs = [pf_gather(N.contiguous(), bra_idx[i : i + step], ket_idx, pad_slots)
-            for i in range(0, nb, max(step, 1))]
-    return torch.cat(outs) if outs else N.new_ones((0, nk))
+    from ..parallel.mesh import map_shards
+
+    def local(b, k_idx, N_d):
+        n = b.shape[0]
+        step = n if chunk is None or n <= chunk else chunk
+        outs = [pf_gather(N_d.contiguous(), b[i : i + step], k_idx, pad_slots)
+                for i in range(0, n, max(step, 1))]
+        return torch.cat(outs) if outs else N_d.new_ones((0, nk))
+
+    return map_shards(local, (bra_idx,), (ket_idx, N))
+
+
+def pfaffian_numpy(A) -> complex:
+    """The Pfaffian of one skew-symmetric matrix on the host, by
+    Parlett-Reid with partial pivoting in numpy: the reference the tests
+    cross-check the kernels and twins with
+    (``temfpy_tpu.ops.pfaffian.pfaffian_numpy``)."""
+    A = np.array(A, dtype=complex)
+    n = A.shape[0]
+    if A.shape != (n, n):
+        raise ValueError(f"pfaffian_numpy needs a square matrix, got {A.shape}")
+    if n % 2 == 1:
+        return 0.0
+    pf = 1.0 + 0.0j
+    for k in range(0, n - 1, 2):
+        kp = k + 1 + int(np.argmax(np.abs(A[k + 1 :, k])))
+        if kp != k + 1:
+            A[[k + 1, kp], :] = A[[kp, k + 1], :]
+            A[:, [k + 1, kp]] = A[:, [kp, k + 1]]
+            pf = -pf
+        if A[k + 1, k] == 0.0:
+            return 0.0
+        pf *= A[k, k + 1]
+        if k + 2 < n:
+            tau = A[k, k + 2 :] / A[k, k + 1]
+            A[k + 2 :, k + 2 :] += np.outer(tau, A[k + 2 :, k + 1])
+            A[k + 2 :, k + 2 :] -= np.outer(A[k + 2 :, k + 1], tau)
+    return complex(pf)

@@ -76,6 +76,16 @@ RSF_KB = 96
 RSF_CHUNK = 32
 
 
+def rsf_rank() -> int:
+    """Per-band sketch rank (``RSF_RANK``)."""
+    return RSF_RANK
+
+
+def rsf_kb() -> int:
+    """Entangled-column bucket of the assembled frames (``RSF_KB``)."""
+    return RSF_KB
+
+
 def rsf_mode() -> str:
     """"0" (off, the default, as in the JAX package) or "1" (on, the CPU
     included).  The JAX package's "auto" is not ported: on an NVIDIA H100
@@ -232,7 +242,7 @@ def rsf_sweep_frames(C, sizes, side, cutoff, *, seed=1234):
     C = C.contiguous()
     L = C.shape[0]
     n = len(sizes)
-    r, kb, m = RSF_RANK, RSF_KB, RSF_CHUNK
+    r, kb, m = rsf_rank(), rsf_kb(), RSF_CHUNK
     dev = C.device
     with profiling.stage("rsf/setup"):
         diag = C.diagonal().cpu().numpy()

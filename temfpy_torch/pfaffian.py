@@ -28,9 +28,11 @@ gamma_{2n} = (c^dag_n + c_n)/sqrt(2), gamma_{2n+1} = i (c^dag_n - c_n)/sqrt(2).
 
 Device: the entry points take ``device``; ``None`` means the device of a
 tensor argument, else ``cuda`` (:func:`temfpy_torch.config.default_device`
-raises where there is no card).  On the CPU the two device entry points run
-their plain PyTorch twins.  The complex128 working dtype is native on the
-card.
+raises where there is no card; under an active mesh, its first device).  On
+the CPU the two device entry points run their plain PyTorch twins.  The
+complex128 working dtype is native on the card.  Under
+:class:`temfpy_torch.parallel.mesh.use_mesh` the eighs' cuts, the K4 sites
+and the K3 pairs split over the mesh.
 
 Not ported (TPU workarounds of the JAX package): the split-plane overlap
 path (``complex_on_device``, ``splitc`` frames, the deferred overlap
@@ -58,8 +60,9 @@ from . import profiling, testing
 from .config import DIAG_TOL as _DIAG_TOL
 from .config import resolve_device
 from .mps import MPS, FermionSite
-from .ops.kernels import bdg_overlap, pf_fill
+from .ops.kernels import bdg_overlap, fill_buffer, pf_fill
 from .ops.linalg import block_svd, eigh_blocks
+from .parallel import mesh as _pmesh
 from .schmidt_utils import lowest_sums, to_stopping_condition
 from .testing import assert_allclose, assert_array_less, check_schmidt_decomposition
 from .utils import HT, normalize_SV
@@ -859,10 +862,12 @@ def _overlap_group(plans, device):
     def up(a, dtype=None):
         return torch.as_tensor(np.stack(a), device=device, dtype=dtype)
 
-    N, norm = bdg_overlap(up([p["frames"][0] for p in plans]),
-                          up([p["frames"][1] for p in plans]),
-                          up([p["j1"] for p in plans]), up([p["j2"] for p in plans]),
-                          up([p["thresh"] for p in plans], torch.float64))
+    # under a mesh the sites split over its "pairs" axis
+    N, norm = _pmesh.map_shards(lambda *a: bdg_overlap(*a),
+                                (up([p["frames"][0] for p in plans]),
+                                 up([p["frames"][1] for p in plans]),
+                                 up([p["j1"] for p in plans]), up([p["j2"] for p in plans]),
+                                 up([p["thresh"] for p in plans], torch.float64)))
     if "norm_checked" in plans[0]:
         norm = up([p["norm_checked"] for p in plans], torch.float64)
     return N, norm
@@ -1009,10 +1014,18 @@ class MPSTensorData:
         T = None if plan is None else _fill_group([self], [plan], _bucket_shape(shape))[0]
         return self.resolve_fill(shape, T), q_l, q_r, self.qtotal
 
+    def to_npc_array(self):
+        """Reference-named alias of :meth:`to_dense_tensor` (reference
+        pfaffian.py:1750-1778 returned a TeNPy npc.Array)."""
+        return self.to_dense_tensor()
+
 
 def _fill_group(datas, plans, shape_b):
     """One ``pf_fill`` launch for sites sharing (width, P_b, table shapes,
-    N's size, spec, bucketed shape); returns (G, *shape_b)."""
+    N's size, spec, bucketed shape), site g into slot g of one zeroed
+    buffer; returns (G, *shape_b).  Under a mesh the pairs split over its
+    "pairs" axis, a launch per shard, each writing its (disjoint) entries
+    into the buffer (:func:`temfpy_torch.parallel.mesh.fill_into`)."""
     dev = datas[0].pfaffian_matrix.device
 
     def up(key):
@@ -1020,10 +1033,13 @@ def _fill_group(datas, plans, shape_b):
 
     tabs = tuple(torch.as_tensor(np.stack([p["tabs"][t] for p in plans]), device=dev)
                  for t in range(3))
-    return pf_fill(torch.stack([d.pfaffian_matrix for d in datas]),
-                   torch.stack([d.norm for d in datas]), up("pos_b"), up("pos_k"),
-                   up("cnt_b"), up("cnt_k"), up("pr"), up("pc"), tabs,
-                   width=plans[0]["width"], spec=plans[0]["spec"], shape=shape_b)
+    N = torch.stack([d.pfaffian_matrix for d in datas])
+    buf = fill_buffer(None, None, len(datas), shape_b, N.dtype, dev)[0]
+    _pmesh.fill_into(pf_fill, (N, torch.stack([d.norm for d in datas]), up("pos_b"),
+                               up("pos_k"), up("cnt_b"), up("cnt_k"), up("pr"), up("pc"), tabs),
+                     (6, 7), buf, range(len(datas)), width=plans[0]["width"],
+                     spec=plans[0]["spec"], shape=shape_b)
+    return buf[:, : shape_b[0]]
 
 
 def build_site_tensors(pairs, *, device, nambu_tolerance: float = 1e-8, min_SV: float = 1e-6):
@@ -1156,7 +1172,9 @@ def C_to_MPS(C, trunc_par, *, basis: str, diag_tol: float = _DIAG_TOL,
     # left half: cuts c-1 .. 0, left Schmidt vectors
     stream_half(list(range(c - 1, -1, -1)), "L", range(c - 1, -1, -1), lambda i: i)
 
-    return MPS([fermion_site] * L, [t for t, _ in tensors], lams,
+    # under a mesh over several cards, a tensor the fill left whole is held
+    # by every card (:func:`temfpy_torch.parallel.mesh.replicate_site`)
+    return MPS([fermion_site] * L, [_pmesh.replicate_site(t) for t, _ in tensors], lams,
                form=["A"] * c + ["B"] * (L - c), bc="finite",
                unit_cell_width=unit_cell_width, q_bonds=q_bonds,
                qtotals=[qt for _, qt in tensors])

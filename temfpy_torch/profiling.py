@@ -7,6 +7,9 @@ Usage::
         mps = slater.H_to_MPS(H, {"chi_max": 256})
     print(prof.report())
 
+    with profiling.trace("traces/run1"):   # a TensorBoard device trace
+        mps = slater.H_to_MPS(H, {"chi_max": 256})
+
 CUDA work is asynchronous: while a collector is active, every stage
 synchronises the current CUDA device when it ends, so that a stage's time
 includes the device work it launched.  Without a collector a stage costs
@@ -71,3 +74,18 @@ def stage(name: str):
         dt = time.perf_counter() - t0
         for prof in _active:
             prof.add(name, dt)
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """A ``torch.profiler`` trace of everything run inside the context (the
+    CPU, and the CUDA device where torch sees one), written to ``logdir``
+    in TensorBoard's format (``temfpy_tpu.profiling.trace`` on
+    ``jax.profiler``)."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(str(logdir))):
+        yield

@@ -44,14 +44,18 @@ package's docstrings do.  The path:
 Every device array lives on the device of the correlation matrix: the
 ``device`` argument of the entry points, else the device of a tensor
 argument, else ``cuda`` (:func:`temfpy_torch.config.default_device`, which
-raises where there is no card: the CPU runs only on ``device="cpu"``).  On
-the CPU the two device entry points run their plain PyTorch twins.
+raises where there is no card: the CPU runs only on ``device="cpu"``; under
+an active mesh, its first device).  On the CPU the two device entry points
+run their plain PyTorch twins.  Under :class:`temfpy_torch.parallel.mesh.
+use_mesh` the conversion splits its batches over the mesh (the eighs'
+cuts, the K2 sites and the fills' pairs; the exact frontend runs), and a
+fill whose bucketed bond reaches ``config.CHI_SHARD_MIN`` splits its bond
+rows over the "cuts" shards and leaves its site tensors bond-sharded.
 
 Not ported (TPU workarounds of the JAX package): ``_take_frame``,
 ``_slice_flat``/``_slice_flat_group``, ``_unstack`` and the fused
 single-upload plan buffer (a Python slice or ``torch.unbind`` does their
-work); the ``_chi_shard_*`` helpers and the mesh branch of
-``build_site_tensors``; the compact host frontend
+work); the compact host frontend
 (``_compact_sweep_frames``: exact-frontend frames are full (L, L) eigh
 outputs); the stream lookahead thread;
 the small-problem CPU reroute; the pair-axis chunking that bounded the
@@ -61,10 +65,10 @@ s_b = 8 bucket and site-level table rows it drives (they bounded the TPU's
 remote cold compiles; the port plans the tight per-class widths of the
 JAX package's CPU layout, which gives the same tensors), the ``GB = 8``
 chunk padding and the ``*_group`` vmaps of the grouped swap stages (each
-kernel takes a whole group), the 4x pair-batch grid (pair batches pad to
-powers of two, as the direct plans do) and the per-class dispatch
-``dispatch_fill`` (``_fill_sites`` launches a site's fills, singly or in
-groups).
+kernel takes a whole group) and the 4x pair-batch grid (pair batches pad
+to powers of two, as the direct plans do).  Under a mesh the JAX package
+dispatches site by site; here the grouped launches stay, each split over
+the shards, with the same state.
 
 ``C_to_iMPS`` / ``H_to_iMPS`` build an iMPS cell from two chains that
 differ by one unit cell: the cell's site tensors through
@@ -96,6 +100,7 @@ from .ops.fw import fw_frames, use_fw
 from .ops.kernels import det_fill, det_rows, site_overlap_schur, swap_fill, swap_tables
 from .ops.linalg import block_svd, eigh_blocks
 from .ops.spectral import reset_rsf_stats, rsf_sweep_frames, use_rsf
+from .parallel import mesh as _pmesh
 from .schmidt_utils import lowest_sums, to_stopping_condition
 from .testing import assert_allclose, check_schmidt_decomposition
 from .utils import HT, n_slice, normalize_SV
@@ -756,8 +761,10 @@ class MPSTensorData:
     def to_dense_tensor(self):
         """The dense (chiL, d, chiR) tensor, or the (bra, ket) matrix without
         a physical leg, with host bond labels: (T, q_l, q_r, qtotal)
-        (reference ``to_npc_array``, slater.py:1106-1143)."""
-        return _fill_sites([self])[0]
+        (reference ``to_npc_array``, slater.py:1106-1143); a chi-sharded fill
+        is gathered."""
+        T, q_l, q_r, qtotal = _fill_sites([self])[0]
+        return _pmesh.gather_replicated(T), q_l, q_r, qtotal
 
     def _plan_fill(self):
         """Host planning of the tensor fill: returns (shape, q_l, q_r,
@@ -785,7 +792,11 @@ class MPSTensorData:
             shape = (nb, 2, nk) if self.mode == "left" else (nk, 2, nb)
         else:
             shape = (nb, nk)
-        use_swap = _use_det_updates(self.sometimes_matrix.device)
+        # a chi-sharded fill keeps its site tensor bond-sharded: every pair
+        # goes direct there, as in the JAX package (the rank-update classes
+        # would scatter into the whole bucket)
+        use_swap = (_use_det_updates(self.sometimes_matrix.device)
+                    and not _pmesh.chi_shard_rows(_bucket_shape(shape)[0]))
 
         direct: dict[int, tuple[list, list]] = {}
         plans = []
@@ -991,7 +1002,33 @@ class MPSTensorData:
             dplan = self._direct_plan_packed(fr, fc, plan["w_b"], plan["m"], shape)
             _fill_group([self.sometimes_matrix], [self.det_always], [dplan],
                         _bucket_shape(shape), buf, [slot])
+        if isinstance(buf, _ChiBuffer):
+            return _pmesh.chi_sharded_site([b[slot] for b in buf.blocks], buf.rows, shape)
         return buf[slot][tuple(slice(0, d) for d in shape)]
+
+    def dispatch_fill(self, shape, plans):
+        """Launches this site's fill (``plans`` of :meth:`_plan_fill`)
+        without synchronising (``temfpy_tpu``'s ``dispatch_fill``): the
+        launch stage of :func:`_fill_sites` for one site.  Returns (buffer,
+        class entries) for :meth:`resolve_fill` at slot 0."""
+        bufs, _slots, classes = _dispatch_fills([self], [(shape, None, None, plans)])
+        return bufs[_bucket_shape(shape)], classes.get(0, ())
+
+    @property
+    def idx_physical(self) -> int | None:
+        """Index of the onsite orbital in the sometimes-orbital space, or
+        None without a physical leg (reference slater.py:967-973; the
+        physical orbital is the last sometimes orbital in mode "left", the
+        first in mode "right")."""
+        if not self.physical_leg:
+            return None
+        return self.sets_bra.shape[1] - 1 if self.mode == "left" else 0
+
+    def to_npc_array(self):
+        """Reference-named alias of :meth:`to_dense_tensor` (reference
+        slater.py:1106-1143 returned a TeNPy npc.Array; the dense engine
+        returns (tensor, q_left, q_right, qtotal))."""
+        return self.to_dense_tensor()
 
 
 def _plan_site(Schmidt_bra: SchmidtVectors, Schmidt_ket: SchmidtVectors, mode: str):
@@ -1175,23 +1212,77 @@ def _overlap_group(plans):
     fk = torch.stack([p["frame_ket"] for p in plans])
     desc = [torch.as_tensor(np.stack([p["desc"][d] for p in plans]), device=dev)
             for d in range(8)]
-    return site_overlap_schur(fb, fk, *desc, kb=plans[0]["kb"],
-                              mode=plans[0]["fields"]["mode"])
+    kb, mode = plans[0]["kb"], plans[0]["fields"]["mode"]
+    # under a mesh the sites split over its "pairs" axis
+    return _pmesh.map_shards(lambda *a: site_overlap_schur(*a, kb=kb, mode=mode), (fb, fk, *desc))
+
+
+class _ChiBuffer:
+    """The bucketed buffer of a chi-sharded fill: its bond rows split over
+    the active mesh's "cuts" shards, block k (rows k * rows .. (k+1) * rows
+    - 1, with a trash row of its own at ``rows``) on "cuts" shard k."""
+
+    def __init__(self, blocks, rows: int):
+        self.blocks = blocks
+        self.rows = rows
+
+
+def _fill_buffer(shape_b, n: int, dtype, device):
+    """The zeroed buffer of ``n`` sites' fills of bucketed shape ``shape_b``
+    (a slot each, :func:`temfpy_torch.ops.kernels.fill_buffer`'s layout): a
+    :class:`_ChiBuffer` where the bucketed bond splits over the active
+    mesh's "cuts" axis (:func:`temfpy_torch.parallel.mesh.chi_shard_rows`)."""
+    n_cut = _pmesh.chi_shard_rows(shape_b[0])
+    if not n_cut:
+        return torch.zeros((n, shape_b[0] + 1) + shape_b[1:], dtype=dtype, device=device)
+    rows = shape_b[0] // n_cut
+    return _ChiBuffer([torch.zeros((n, rows + 1) + shape_b[1:], dtype=dtype, device=d)
+                       for d in _pmesh.active_mesh().along("cuts")], rows)
 
 
 def _fill_group(Ms, dets, plans, shape_b, buf, slots):
     """One ``det_fill`` launch for fill plans sharing (bucketed shape, P_b,
     table shapes, spec, sometimes shape), each writing into its site's slot
-    ``slots[g]`` of the bucketed buffer ``buf`` in place."""
+    ``slots[g]`` of the bucketed buffer ``buf`` in place.  Under a mesh the
+    pairs split over its "pairs" axis, a launch per shard; into a
+    :class:`_ChiBuffer`, "cuts" shard k fills the pairs whose output rows
+    it holds (the JAX package's chi-sharded fill, ``_sharded_packed_fill``;
+    no reduce-scatter: every entry is written by one pair)."""
     dev = Ms[0].device
 
-    def up(key):
-        return torch.as_tensor(np.stack([p[key] for p in plans]), device=dev)
+    def up(a):
+        return torch.as_tensor(np.stack(a), device=dev)
 
-    tabs = tuple(torch.as_tensor(np.stack([p["tabs"][t] for p in plans]), device=dev)
-                 for t in range(3))
-    det_fill(torch.stack(Ms), torch.stack(dets), up("occ_b"), up("occ_k"), up("pr"), up("pc"),
-             tabs, spec=plans[0]["spec"], shape=shape_b, out=buf, slot=slots)
+    M, det = torch.stack(Ms), torch.stack(dets)
+    occ_b, occ_k = up([p["occ_b"] for p in plans]), up([p["occ_k"] for p in plans])
+    spec = plans[0]["spec"]
+    if not isinstance(buf, _ChiBuffer):
+        tabs = tuple(up([p["tabs"][t] for p in plans]) for t in range(3))
+        _pmesh.fill_into(det_fill, (M, det, occ_b, occ_k, up([p["pr"] for p in plans]),
+                                    up([p["pc"] for p in plans]), tabs),
+                         (4, 5), buf, slots, spec=spec, shape=shape_b)
+        return
+    B = buf.rows
+    lead = [p["tabs"][0][p["pr"] if spec[0] == "r" else p["pc"]] for p in plans]
+    for k, block in enumerate(buf.blocks):
+        sel = [(x >= k * B) & (x < (k + 1) * B) for x in lead]
+        n_k = max(int(s.sum()) for s in sel)
+        if not n_k:
+            continue
+
+        def ids(p, key, s, pad):
+            out = np.full(n_k, pad, np.int32)
+            out[: int(s.sum())] = p[key][s]
+            return out
+
+        pr = up([ids(p, "pr", s, p["occ_b"].shape[0] - 1) for p, s in zip(plans, sel)])
+        pc = up([ids(p, "pc", s, p["occ_k"].shape[0] - 1) for p, s in zip(plans, sel)])
+        # the leading table's rows outside the block go to its trash row B
+        t0 = up([np.where((x >= k * B) & (x < (k + 1) * B), x - k * B, B).astype(np.int32)
+                 for x in (p["tabs"][0] for p in plans)])
+        tabs = (t0, *(up([p["tabs"][t] for p in plans]) for t in (1, 2)))
+        _pmesh.fill_into(det_fill, (M, det, occ_b, occ_k, pr, pc, tabs), (4, 5), block, slots,
+                         at=k, chi=True, spec=spec, shape=(B,) + tuple(shape_b[1:]))
 
 
 def build_site_tensors(pairs):
@@ -1227,12 +1318,28 @@ def build_site_tensors(pairs):
 
 
 def _fill_sites(datas):
-    """The fill of many sites' data, grouped by shape bucket: the direct
-    fill (kernel K1), then the rank-update classes (K6a, K6b, K5).  Returns
+    """The fill of many sites' data, grouped by shape bucket
+    (:func:`_dispatch_fills`), each site resolved from its slot.  Returns
     [(T, q_l, q_r, qtotal)] aligned with ``datas``."""
-    # ---- stage 2: grouped fill (kernel K1) ----
     with profiling.stage("fill/plan_fill"):
         fill_plans = [d._plan_fill() for d in datas]
+    bufs, slot_of, site_classes = _dispatch_fills(datas, fill_plans)
+    with profiling.stage("fill/resolve"):
+        out = []
+        for i, (shape, q_l, q_r, _plans) in enumerate(fill_plans):
+            out.append((datas[i].resolve_fill(shape, bufs[_bucket_shape(shape)], slot_of[i],
+                                              site_classes.get(i, ())),
+                        q_l, q_r, datas[i].qtotal))
+    return out
+
+
+def _dispatch_fills(datas, fill_plans):
+    """The launches of many sites' fills (``fill_plans`` of
+    :meth:`MPSTensorData._plan_fill`), grouped by shape bucket: the direct
+    fill (kernel K1), then the rank-update classes (K6a, K6b, K5).  Returns
+    (buffers by bucketed shape, each site's slot, each site's class
+    entries) for :meth:`MPSTensorData.resolve_fill`."""
+    # ---- stage 2: grouped fill (kernel K1) ----
     # one zeroed buffer per bucketed shape holds its sites' tensors, a slot
     # each; every fill writes its site's (disjoint) entries there in place
     slot_of, n_of = [], Counter()
@@ -1240,8 +1347,7 @@ def _fill_sites(datas):
         slot_of.append(n_of[_bucket_shape(shape)])
         n_of[_bucket_shape(shape)] += 1
     som = datas[0].sometimes_matrix
-    bufs = {sb: torch.zeros((k, sb[0] + 1) + sb[1:], dtype=som.dtype, device=som.device)
-            for sb, k in n_of.items()}
+    bufs = {sb: _fill_buffer(sb, k, som.dtype, som.device) for sb, k in n_of.items()}
     fill_groups: dict = {}
     for i, (shape, _ql, _qr, fplans) in enumerate(fill_plans):
         for plan in fplans:
@@ -1257,14 +1363,7 @@ def _fill_sites(datas):
                         key[0], bufs[key[0]], [slot_of[i] for i, _ in entries])
 
     # ---- stage 3: rank-update classes (kernels K6a, K6b, K5) ----
-    site_classes = _swap_stages(datas, fill_plans, bufs, slot_of)
-    with profiling.stage("fill/resolve"):
-        out = []
-        for i, (shape, q_l, q_r, _plans) in enumerate(fill_plans):
-            out.append((datas[i].resolve_fill(shape, bufs[_bucket_shape(shape)], slot_of[i],
-                                              site_classes.get(i, ())),
-                        q_l, q_r, datas[i].qtotal))
-    return out
+    return bufs, slot_of, _swap_stages(datas, fill_plans, bufs, slot_of)
 
 
 def _probe_ok(pairs) -> bool:
@@ -1347,11 +1446,16 @@ def _swap_stages(datas, fill_plans, bufs, slot_of):
         probed, vals = [], []
         for key, us in pgroups.items():
             args = _swap_units(datas, us, dev)
-            sw = swap_fill(*args, up(np.stack([sub["pr"][sub["check_sel"]] for _, sub in us])),
-                           up(np.stack([sub["pc"][sub["check_sel"]] for _, sub in us])),
-                           s_b=key[5])
-            dr = det_rows(args[0], up(np.stack([sub["check_idx_b"] for _, sub in us])),
-                          up(np.stack([sub["check_idx_k"] for _, sub in us])), args[1])
+            s_b = key[5]
+            # under a mesh the checked pairs split over its "pairs" axis
+            sw = _pmesh.map_shards(
+                lambda pr, pc, *a: swap_fill(*a, pr, pc, s_b=s_b),
+                (up(np.stack([sub["pr"][sub["check_sel"]] for _, sub in us])),
+                 up(np.stack([sub["pc"][sub["check_sel"]] for _, sub in us]))), args, dim=1)
+            dr = _pmesh.map_shards(
+                lambda ib, ik, M, d: det_rows(M, ib, ik, d),
+                (up(np.stack([sub["check_idx_b"] for _, sub in us])),
+                 up(np.stack([sub["check_idx_k"] for _, sub in us]))), args[:2], dim=1)
             probed += us
             vals.append(torch.stack([sw, dr]))
         if vals:
@@ -1376,11 +1480,12 @@ def _swap_stages(datas, fill_plans, bufs, slot_of):
                    shape_b)
             sgroups.setdefault(key, []).append((e, sub))
         for key, us in sgroups.items():
-            swap_fill(*_swap_units(datas, us, dev), up(np.stack([sub["pr"] for _, sub in us])),
-                      up(np.stack([sub["pc"] for _, sub in us])),
-                      tuple(up(np.stack([sub["tabs"][k] for _, sub in us])) for k in range(3)),
-                      s_b=key[5], spec=key[6], shape=key[7], out=bufs[key[7]],
-                      slot=[slot_of[e["i"]] for e, _ in us])
+            args = (*_swap_units(datas, us, dev), up(np.stack([sub["pr"] for _, sub in us])),
+                    up(np.stack([sub["pc"] for _, sub in us])),
+                    tuple(up(np.stack([sub["tabs"][k] for _, sub in us])) for k in range(3)))
+            _pmesh.fill_into(swap_fill, args, (15, 16), bufs[key[7]],
+                             [slot_of[e["i"]] for e, _ in us], s_b=key[5], spec=key[6],
+                             shape=key[7])
 
     site_classes: dict = {}
     for e in entries:
@@ -1456,7 +1561,9 @@ def _schmidt_vectors_batched(C: torch.Tensor, cuts, which: str, trunc_par,
     L = C.shape[0]
     sizes = [x if which == "L" else L - x for x in cuts]
     n = len(cuts)
-    rsf = use_rsf(C)
+    # under a mesh the exact frontend runs, whatever the frontends' flags
+    # say (its eighs split over the mesh; the JAX package's gate)
+    rsf = _pmesh.active_mesh() is None and use_rsf(C)
     res = None
     if C_host is not None and not rsf:
         with profiling.stage("eigh_batch"):
@@ -1524,7 +1631,8 @@ def C_to_MPS(C, trunc_par, *, diag_tol: float = _DIAG_TOL, ortho_center: int | N
     # one host copy of C serves the FW sweep of every block of both
     # half-streams (the sweep is cached by the matrix's values); the
     # randomized frontend, where on, comes first and needs none
-    C_host = C.cpu().numpy() if use_fw(C, L) and not use_rsf(C) else None
+    C_host = (C.cpu().numpy() if _pmesh.active_mesh() is None and use_fw(C, L) and not use_rsf(C)
+              else None)
 
     tensors = [None] * L
     lams = [None] * (L + 1)
@@ -1562,7 +1670,9 @@ def C_to_MPS(C, trunc_par, *, diag_tol: float = _DIAG_TOL, ortho_center: int | N
     # left half: cuts c-1 .. 0, left Schmidt vectors
     stream_half(list(range(c - 1, -1, -1)), "L", range(c - 1, -1, -1), lambda i: i)
 
-    return MPS([fermion_site] * L, [t for t, _ in tensors], lams,
+    # under a mesh over several cards, a tensor the fill left whole is held
+    # by every card (:func:`temfpy_torch.parallel.mesh.replicate_site`)
+    return MPS([fermion_site] * L, [_pmesh.replicate_site(t) for t, _ in tensors], lams,
                form=["A"] * c + ["B"] * (L - c), bc="finite",
                unit_cell_width=unit_cell_width, q_bonds=q_bonds,
                qtotals=[qt for _, qt in tensors])
@@ -1660,7 +1770,7 @@ def C_to_iMPS(C_short, C_long, trunc_par, sites_per_cell: int, cut: int, *,
         Cmat, normalize_SV(Schmidt_short.schmidt_values), normalize_SV(Schmidt_long.schmidt_values),
         mode="left", q_bra=q_bra, q_ket=q_ket, chinfo=chinfo, qtotal=qt_c,
         unitary_tol=unitary_tol, schmidt_tol=schmidt_tol)
-    tensors[0] = torch.einsum("ab,bnc->anc", Cmat, tensors[0])
+    tensors[0] = torch.einsum("ab,bnc->anc", Cmat, _pmesh.gather_replicated(tensors[0]))
     qts[0] += qt_c
     imps = MPS([fermion_site] * sites_per_cell, tensors, lams, form="B", bc="infinite",
                unit_cell_width=unit_cell_width, q_bonds=q_bonds, qtotals=qts)

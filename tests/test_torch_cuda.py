@@ -107,6 +107,11 @@ def test_pf_fill_kernel_matches_twin(cuda, w, spec):
     got = kernels.pf_fill(*a, **kw)
     assert kernels.pf_fill.launches == before + 1
     assert _rel(got, kernels.pf_fill_plain(*a, **kw)) <= RTOL
+    # in place, each site into its slot of a shared buffer
+    shape = kw["shape"]
+    buf = torch.zeros((4, shape[0] + 1) + tuple(shape[1:]), dtype=got.dtype, device=cuda)
+    kernels.pf_fill(*a, **kw, out=buf, slot=[3, 0, 1])
+    assert torch.equal(buf[[3, 0, 1], : shape[0]], got) and not buf[2].any()
 
 
 @pytest.mark.parametrize("nb,k1,k2,x", [(8, 8, 8, 5), (32, 16, 8, 30), (32, 24, 24, 17),
@@ -1172,3 +1177,53 @@ def test_pfaffian_imps_on_cuda_kernels_match_twins(cuda, monkeypatch):
     twin, err_t = pfaffian.H_to_iMPS(H, H2, tp, 4, 16, basis="C", device=cuda)
     assert _squared_spectra_diff(imps, twin) <= 1e-10
     assert max(abs(x * x - y * y) for x, y in zip(err, err_t)) <= 1e-10
+
+
+def _mesh_state_dev(ref, out):
+    return max(float((ref._tensor(i) - out._tensor(i)).abs().max()) for i in range(ref.L))
+
+
+def test_mesh_conversion_on_cuda_matches_one_device(cuda):
+    """A 2x2 mesh of logical shards of the card: the conversion equals the
+    one-device one, and K1 launches once per "pairs" shard of each group."""
+    from temfpy_torch.parallel import mesh as pmesh
+
+    mesh = pmesh.make_mesh(devices=[cuda] * 4)
+    rng = np.random.default_rng(0)
+    H = rng.normal(size=(40, 40))
+    H = H + H.T
+    tp = {"chi_max": 64}
+    kernels.det_fill.launches = 0
+    ref = slater.H_to_MPS(H, tp, device=cuda)
+    n_ref, kernels.det_fill.launches = kernels.det_fill.launches, 0
+    with pmesh.use_mesh(mesh):
+        out = slater.H_to_MPS(H, tp)
+    assert kernels.det_fill.launches == mesh.shape["pairs"] * n_ref
+    assert _mesh_state_dev(ref, out) <= 1e-12
+    for sa, sb in zip(ref._S, out._S):
+        np.testing.assert_array_equal(sa, sb)
+
+
+def test_mesh_residency_on_cuda(cuda, monkeypatch):
+    """The mesh's smoke step on a 2x2 grid of the card (its resident L=48
+    conversion sharded and balanced), and canonical_form_finite under the
+    mesh: every tensor of >= 8 bond rows whose bond shares a factor with
+    the 4 shards stays split, the bytes balanced, the state unchanged."""
+    import functools
+
+    from temfpy_torch.parallel import mesh as pmesh
+
+    mesh = pmesh.make_mesh(devices=[cuda] * 4)
+    assert np.isfinite(pmesh.multichip_conversion_step(mesh))
+    monkeypatch.setattr(pmesh, "bond_shard_put",
+                        functools.partial(pmesh.bond_shard_put, min_dim=8))
+    H = np.diag(-1.0 - 0.3 * (-1) ** np.arange(23), 1)
+    ref = slater.H_to_MPS(H + H.T, {"chi_max": 32}, device=cuda)
+    out = ref.copy()
+    ref.canonical_form_finite()
+    with pmesh.use_mesh(mesh):
+        out.canonical_form_finite()
+    assert _mesh_state_dev(ref, out) <= 1e-12
+    n_sharded, per = pmesh.residency(out._B, mesh)
+    expect = sum(1 for B in out._B if B.shape[0] >= 8 and np.gcd(B.shape[0], 4) > 1)
+    assert n_sharded == expect >= 8 and max(per) / min(per) < 1.01

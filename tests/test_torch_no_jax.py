@@ -68,6 +68,17 @@ def test_port_imports_and_runs_without_jax():
         rsf = slater.H_to_MPS(Hc, {"chi_max": 96}, device="cpu")
         fid = abs(rsf.overlap(swap)) / np.sqrt(rsf.norm_squared() * swap.norm_squared())
         assert spectral.rsf_stats()["cuts"] == L and fid > 1 - 1e-10
+        # a conversion over a 2-shard CPU mesh, and a checkpoint round trip
+        import tempfile
+        import temfpy_torch.parallel
+        from temfpy_torch.parallel import make_mesh, use_mesh
+        with use_mesh(make_mesh(devices=["cpu"] * 2)):
+            meshed = slater.H_to_MPS(H, {"chi_max": 16})
+        assert max(float((a - b).abs().max()) for a, b in zip(state._B, meshed._B)) <= 1e-12
+        with tempfile.TemporaryDirectory() as tmp:
+            io.save_mps(tmp + "/state.npz", meshed)
+            back = io.load_mps(tmp + "/state.npz", device="cpu")
+        assert abs(abs(back.overlap(state)) - 1) < 1e-12
         bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "temfpy_tpu")))
         assert not bad, bad
         print("ok")

@@ -106,6 +106,23 @@ def test_pf_fill_twin_matches_jax_pairs(spec, w):
         close(got[g], ref[: kw["shape"][0]])
 
 
+@pytest.mark.parametrize("spec", ["rc", "crr"])
+def test_pf_fill_twin_writes_into_slots(spec):
+    """With ``out``/``slot`` the fill writes each site into its slot of a
+    caller's buffer, the values of a fresh fill, and leaves other slots
+    alone (as det_fill does)."""
+    args, kw = testing.random_pf_fill_case(8, G=3, w=8, m=16, P=300, spec=spec, n_rows=32)
+    a = [torch.as_tensor(x) for x in args[:8]] + [tuple(torch.as_tensor(t) for t in args[8])]
+    got = kernels.pf_fill(*a, **kw)
+    shape = kw["shape"]
+    buf = torch.zeros((4, shape[0] + 1) + tuple(shape[1:]), dtype=got.dtype)
+    out = kernels.pf_fill(*a, **kw, out=buf, slot=[3, 0, 1])
+    assert torch.equal(buf[[3, 0, 1], : shape[0]], got) and not buf[2].any()
+    assert out.data_ptr() == buf.data_ptr() and tuple(out.shape) == (4,) + tuple(shape)
+    with pytest.raises(ValueError):
+        kernels.pf_fill(*a, **kw, out=buf, slot=[0, 1])
+
+
 @pytest.fixture(scope="module")
 def captured():
     """Site plans of the port's planner on Schmidt vectors of a JAX
