@@ -4,7 +4,10 @@ Each entry point takes a CPU tensor to its plain PyTorch twin and a CUDA
 tensor to its hand-written CUDA kernel (``temfpy_torch/csrc``, built at
 first use by :mod:`temfpy_torch.ops._build`).  A CUDA call launches the
 kernel or raises; nothing falls back.  Each wrapper counts its kernel
-launches in its ``launches`` attribute (twin calls do not count).
+launches in its ``launches`` attribute (twin calls do not count); the
+fill kernels K1-K4 also count each launch and each twin call as
+``launch/<wrapper>`` in an active :func:`temfpy_torch.profiling.collect`
+(:func:`_launched`).
 
 - :func:`site_overlap_schur` (kernels ``csrc/site_overlap_schur.cu``)
   replaces ``temfpy_tpu/slater.py:_site_overlap_impl`` /
@@ -95,6 +98,7 @@ import math
 
 import torch
 
+from .. import profiling
 from .linalg import (block_diag_identity_pad, det_swap_tables, det_swaps_body,
                      gather_submatrices, gauss_inverse, gauss_solve_det, lu_det)
 from .pfaffian import (batched_pfaffian, batched_pfaffian_pairs, derive_pair_indices,
@@ -149,6 +153,16 @@ def _check_int32(tensors: dict):
 def _raise_on(err: int, name: str):
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+
+
+def _launched(wrapper, twin: bool = False):
+    """Counts one call of a fill wrapper (K1-K4): a kernel launch in the
+    wrapper's ``launches`` (not where ``twin``: the CPU twin ran), and
+    either call as ``launch/<wrapper>`` in an active collector (the
+    counters the benchmark's ``fill.launches`` reads)."""
+    if not twin:
+        wrapper.launches += 1
+    profiling.count("launch/" + wrapper.__name__)
 
 
 # --------------------------------------------------------------------------
@@ -258,6 +272,7 @@ def site_overlap_schur(frames_b, frames_k, colb, kindb, rowb, signb,
     if dev.type == "cpu":
         if mode not in ("left", "right"):
             raise ValueError(f"mode must be 'left' or 'right', got {mode!r}")
+        _launched(site_overlap_schur, twin=True)
         return site_overlap_schur_plain(*args, kb=kb, mode=mode)
     if not site_overlap_fits_smem(colb.shape[-1], frames_b.dtype):
         return site_overlap_schur_gmem(*args, kb=kb, mode=mode)
@@ -329,7 +344,7 @@ def _site_overlap_launch(wrapper, args, kb, mode):
             int(mode == "right"), nc, rows, smem, work.data_ptr(), det.data_ptr(),
             S.data_ptr(), _stream_ptr(dev))
     _raise_on(err, wrapper.__name__)
-    wrapper.launches += 1
+    _launched(wrapper)
     return det, S
 
 
@@ -438,6 +453,7 @@ def det_fill(M, det_always, occ_b, occ_k, pr, pc, tabs, *, spec: str, shape: tup
         raise ValueError(f"shape {shape} does not match spec {spec!r}")
     dev = M.device
     if dev.type == "cpu":
+        _launched(det_fill, twin=True)
         return det_fill_plain(M, det_always, occ_b, occ_k, pr, pc, tabs,
                               spec=spec, shape=shape, out=out, slot=slot)
     if dev.type != "cuda":
@@ -468,7 +484,8 @@ def det_fill(M, det_always, occ_b, occ_k, pr, pc, tabs, *, spec: str, shape: tup
     D2 = shape[2] if len(shape) == 3 else 1
     out, slot = fill_buffer(out, slot, G, shape, M.dtype, dev)
     # from pinned memory: the copy does not wait for the stream
-    slot_t = torch.tensor(slot, dtype=torch.int32).pin_memory().to(dev, non_blocking=True)
+    slot_t = profiling.to_device(torch.tensor(slot, dtype=torch.int32).pin_memory(), dev,
+                                 non_blocking=True)
     n2 = t2.shape[1] if len(shape) == 3 else 0
     geo = det_fill_geometry(w, pr.shape[1], G, M.dtype)
     lib = _build.load()
@@ -482,7 +499,7 @@ def det_fill(M, det_always, occ_b, occ_k, pr, pc, tabs, *, spec: str, shape: tup
             geo["pairs_per_block"], _stream_ptr(dev),
         )
     _raise_on(err, "det_fill")
-    det_fill.launches += 1
+    _launched(det_fill)
     return out[:, : shape[0]]
 
 
@@ -585,6 +602,7 @@ def bdg_overlap(V1h, V2h, j1, j2, thresh):
     (a cluster per site, or past what a cluster holds the global-memory
     elimination), with a per-site workspace."""
     if V1h.device.type == "cpu":
+        _launched(bdg_overlap, twin=True)
         return bdg_overlap_plain(V1h, V2h, j1, j2, thresh)
     dev = V1h.device
     if dev.type != "cuda":
@@ -606,7 +624,7 @@ def bdg_overlap(V1h, V2h, j1, j2, thresh):
                                  work.data_ptr(), N.data_ptr(), norm.data_ptr(),
                                  _stream_ptr(dev))
     _raise_on(err, "bdg_overlap")
-    bdg_overlap.launches += 1
+    _launched(bdg_overlap)
     return N, norm
 
 
@@ -803,6 +821,7 @@ def pf_fill(N, norm, pos_b, pos_k, cnt_b, cnt_k, pr, pc, tabs, *, width: int, sp
         raise ValueError(f"width must be even, got {width}")
     dev = N.device
     if dev.type == "cpu":
+        _launched(pf_fill, twin=True)
         return pf_fill_plain(N, norm, pos_b, pos_k, cnt_b, cnt_k, pr, pc, tabs, width=width,
                              spec=spec, shape=shape, out=out, slot=slot)
     if dev.type != "cuda":
@@ -835,7 +854,8 @@ def pf_fill(N, norm, pos_b, pos_k, cnt_b, cnt_k, pr, pc, tabs, *, width: int, sp
     D2 = shape[2] if len(shape) == 3 else 1
     out, slot = fill_buffer(out, slot, G, shape, N.dtype, dev)
     # from pinned memory: the copy does not wait for the stream
-    slot_t = torch.tensor(slot, dtype=torch.int32).pin_memory().to(dev, non_blocking=True)
+    slot_t = profiling.to_device(torch.tensor(slot, dtype=torch.int32).pin_memory(), dev,
+                                 non_blocking=True)
     n2 = t2.shape[1] if len(shape) == 3 else 0
     geo = pf_fill_geometry(width, pr.shape[1], G, m)
     lib = _build.load()
@@ -849,7 +869,7 @@ def pf_fill(N, norm, pos_b, pos_k, cnt_b, cnt_k, pr, pc, tabs, *, width: int, sp
             int(geo["stage"]), _stream_ptr(dev),
         )
     _raise_on(err, "pf_fill")
-    pf_fill.launches += 1
+    _launched(pf_fill)
     return out[:, : shape[0]]
 
 
@@ -1199,7 +1219,7 @@ def swap_fill(M, det_always, D0, G, P, T2, T3, Rin, Rout, Rpos, sgr, Cin, Cout, 
         D1 = shape[1]
         D2 = shape[2] if len(shape) == 3 else 1
         out, slot = fill_buffer(out, slot, U, shape, M.dtype, dev)
-        slot_t = torch.tensor(slot, dtype=torch.int32, device=dev)
+        slot_t = profiling.to_device(torch.tensor(slot, dtype=torch.int32), dev)
         tab_ptrs = (t0.data_ptr(), t1.data_ptr(), t2.data_ptr(), slot_t.data_ptr())
         dims = (t0.shape[1], t1.shape[1], t2.shape[1] if len(shape) == 3 else 0, SPECS[spec],
                 shape[0] + 1, D1, D2)

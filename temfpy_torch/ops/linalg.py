@@ -34,6 +34,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import profiling
+
 _PAD_EIGENVALUE = 2.0  # outside [0, 1], the spectrum of any correlation block
 
 
@@ -86,7 +88,7 @@ def eigh_blocks(C: torch.Tensor, sizes, side: str = "L", chunk: int | None = Non
     if mesh is not None:
         return _pmesh.sharded_schmidt_spectra(C, sizes, side, mesh, chunk=chunk,
                                               device=C.device)
-    sizes = torch.as_tensor(np.asarray(sizes, np.int64), device=C.device)
+    sizes = profiling.to_device(np.asarray(sizes, np.int64), C.device)
     return _eigh_blocks_chunked(C, sizes, side, chunk)
 
 
@@ -456,7 +458,7 @@ def block_svd(CLR: torch.Tensor, vL: torch.Tensor, vR: torch.Tensor, e,
     mult = ends - starts
     for m in np.unique(mult):
         sel = starts[mult == m]
-        idx = torch.as_tensor(sel[:, None] + np.arange(m)[None, :], device=vL.device)
+        idx = profiling.to_device(sel[:, None] + np.arange(m)[None, :], vL.device)
         vL_blk = vL[:, idx]  # (K, d, m)
         vR_blk = vR[:, idx]
         s_blk = torch.einsum("kdi,km,mdj->dij", vL_blk.conj(), CLR, vR_blk)

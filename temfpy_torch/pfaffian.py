@@ -173,10 +173,7 @@ assert_nambu_hamiltonian = partial(assert_nambu, offset=0, name="Hamiltonian")
 assert_nambu_correlation = partial(assert_nambu, offset=1, name="correlation matrix")
 
 
-def _host(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-
-
+@profiling.entry_point
 def correlation_matrix(H, basis: str | None = None, *, rtol: float = 0, atol: float = 1e-10,
                        device=None) -> np.ndarray:
     r"""Ground-state Nambu correlation matrix of a BdG Hamiltonian
@@ -190,25 +187,29 @@ def correlation_matrix(H, basis: str | None = None, *, rtol: float = 0, atol: fl
     tol = dict(rtol=rtol, atol=atol)
     dev = resolve_device(H, device)
 
-    H = assert_nambu_hamiltonian(_host(H), None if basis is None else basis[0], **tol)
-    n = len(H) // 2
-    e, v = torch.linalg.eigh(torch.as_tensor(np.ascontiguousarray(H), device=dev))
-    e_host = e.cpu().numpy()
-    assert_allclose(e_host + e_host[::-1], 0, **tol)
-    if np.any(abs(e_host) < atol):
-        raise RuntimeError(
-            "Some energy eigenvalues are zero. You need to construct\n"
-            "your own correlation matrix!\n"
-            f"Middle 10 eigenvalues:\n{e_host[n - 5 : n + 5, None]}"
-        )
-    assert_array_less(e_host[:n], 0, "Lower half of eigenvalues is not all negative")
-    v = v[:, :n].cpu().numpy()
-    if basis == "C->M":
-        v = vector_C2M(v)
-    elif basis == "M->C":
-        v = vector_M2C(v)
-    C = v @ HT(v)
-    return assert_nambu_correlation(C, None if basis is None else basis[3], **tol)
+    with profiling.stage("correlation_matrix"):
+        with profiling.stage("checks/nambu"):
+            H = assert_nambu_hamiltonian(profiling.to_host(H), None if basis is None else basis[0],
+                                         **tol)
+        n = len(H) // 2
+        e, v = torch.linalg.eigh(profiling.to_device(np.ascontiguousarray(H), dev))
+        e_host = profiling.to_host(e)
+        assert_allclose(e_host + e_host[::-1], 0, **tol)
+        if np.any(abs(e_host) < atol):
+            raise RuntimeError(
+                "Some energy eigenvalues are zero. You need to construct\n"
+                "your own correlation matrix!\n"
+                f"Middle 10 eigenvalues:\n{e_host[n - 5 : n + 5, None]}"
+            )
+        assert_array_less(e_host[:n], 0, "Lower half of eigenvalues is not all negative")
+        v = profiling.to_host(v[:, :n])
+        if basis == "C->M":
+            v = vector_C2M(v)
+        elif basis == "M->C":
+            v = vector_M2C(v)
+        C = v @ HT(v)
+        with profiling.stage("checks/nambu"):
+            return assert_nambu_correlation(C, None if basis is None else basis[3], **tol)
 
 
 def parity(V, *, tol: float = 1e-12) -> int:
@@ -367,7 +368,7 @@ class SchmidtModes:
         trunc_par = to_stopping_condition(trunc_par)
         cutoff = trunc_par.svd_min**2
         deg_tol = trunc_par.degeneracy_tol
-        C_M = _host(C_M)
+        C_M = profiling.to_host(C_M)
         L = C_M.shape[0] // 2
         y = L - x
 
@@ -406,11 +407,11 @@ class SchmidtModes:
         eL_a = keL = khL = eR_a = keR = khR = None
         vL = vR = None
         if eL is not None:
-            eL_a, keL, khL = analyse(_host(eL), x)
-            vL = np.array(_host(vL_raw), dtype=complex)
+            eL_a, keL, khL = analyse(profiling.to_host(eL), x)
+            vL = np.array(profiling.to_host(vL_raw), dtype=complex)
         if eR is not None:
-            eR_a, keR, khR = analyse(_host(eR), y)
-            vR = np.array(_host(vR_raw), dtype=complex)
+            eR_a, keR, khR = analyse(profiling.to_host(eR), y)
+            vR = np.array(profiling.to_host(vR_raw), dtype=complex)
         if eL_a is None and eR_a is None:
             raise ValueError("need at least one of the L/R eigendecompositions")
 
@@ -517,28 +518,29 @@ class SchmidtModes:
         device for a tensor, else ``cuda``)."""
         trunc_par = to_stopping_condition(trunc_par)
         dev = resolve_device(C, device)
-        C = _host(C)
+        C = profiling.to_host(C)
         if basis == "C":
             C = matrix_C2M(C)
         elif basis != "M":
             raise ValueError(f"Argument `basis` must be 'M' or 'C', got {basis!r}")
-        C = assert_nambu_correlation(C, "M", atol=trunc_par.svd_min**2)
+        with profiling.stage("checks/nambu"):
+            C = assert_nambu_correlation(C, "M", atol=trunc_par.svd_min**2)
         L = C.shape[0] // 2
         assert 0 <= x <= L, f"Invalid entanglement cut {x}, must be between 0 and {L}"
         which = which.upper()
         assert ("L" in which) or ("R" in which), \
             "`which` must specify at least one of (L)eft or (R)ight"
 
-        C_dev = torch.as_tensor(np.ascontiguousarray(C), device=dev)
+        C_dev = profiling.to_device(np.ascontiguousarray(C), dev)
         eL = vL_raw = eR = vR_raw = None
         if "L" in which:
             e_all, v_all = eigh_blocks(C_dev, [2 * x], "L")
-            eL = e_all[0, : 2 * x].cpu().numpy()
-            vL_raw = v_all[0, : 2 * x, : 2 * x].cpu().numpy()
+            eL = profiling.to_host(e_all[0, : 2 * x])
+            vL_raw = profiling.to_host(v_all[0, : 2 * x, : 2 * x])
         if "R" in which:
             e_all, v_all = eigh_blocks(C_dev, [2 * (L - x)], "R")
-            eR = e_all[0, : 2 * (L - x)].cpu().numpy()
-            vR_raw = v_all[0, 2 * x :, : 2 * (L - x)].cpu().numpy()
+            eR = profiling.to_host(e_all[0, : 2 * (L - x)])
+            vR_raw = profiling.to_host(v_all[0, 2 * x :, : 2 * (L - x)])
         return cls.from_eigh_majorana(C, x, trunc_par, eL=eL, vL_raw=vL_raw, eR=eR,
                                       vR_raw=vR_raw, diag_tol=diag_tol,
                                       total_parity=total_parity)
@@ -831,7 +833,8 @@ def _plan_site(Schmidt_bra: SchmidtVectors, Schmidt_ket: SchmidtVectors, mode: s
         "fields": fields,
     }
     if testing.TEST_ACTION != "pass":
-        plan["norm_checked"] = _check_overlap(V1, V2, idx1, idx2, nambu_tolerance, min_SV)
+        with profiling.stage("checks/overlap"):
+            plan["norm_checked"] = _check_overlap(V1, V2, idx1, idx2, nambu_tolerance, min_SV)
     return plan
 
 
@@ -860,7 +863,7 @@ def _overlap_group(plans, device):
     """One ``bdg_overlap`` launch for sites sharing (n_b, k1_b, k2_b);
     returns (N (G, m, m), norm (G,)) on ``device``."""
     def up(a, dtype=None):
-        return torch.as_tensor(np.stack(a), device=device, dtype=dtype)
+        return profiling.to_device(np.stack(a), device, dtype)
 
     # under a mesh the sites split over its "pairs" axis
     N, norm = _pmesh.map_shards(lambda *a: bdg_overlap(*a),
@@ -1029,9 +1032,9 @@ def _fill_group(datas, plans, shape_b):
     dev = datas[0].pfaffian_matrix.device
 
     def up(key):
-        return torch.as_tensor(np.stack([p[key] for p in plans]), device=dev)
+        return profiling.to_device(np.stack([p[key] for p in plans]), dev)
 
-    tabs = tuple(torch.as_tensor(np.stack([p["tabs"][t] for p in plans]), device=dev)
+    tabs = tuple(profiling.to_device(np.stack([p["tabs"][t] for p in plans]), dev)
                  for t in range(3))
     N = torch.stack([d.pfaffian_matrix for d in datas])
     buf = fill_buffer(None, None, len(datas), shape_b, N.dtype, dev)[0]
@@ -1093,6 +1096,7 @@ def build_site_tensors(pairs, *, device, nambu_tolerance: float = 1e-8, min_SV: 
 #### ------------ ####
 
 
+@profiling.entry_point
 def C_to_MPS(C, trunc_par, *, basis: str, diag_tol: float = _DIAG_TOL,
              ortho_center: int | None = None, unit_cell_width: int | None = None,
              eigh_chunk: int = 32, device=None) -> MPS:
@@ -1106,31 +1110,34 @@ def C_to_MPS(C, trunc_par, *, basis: str, diag_tol: float = _DIAG_TOL,
     Schmidt modes and enumeration on the host, and the grouped site
     kernels.  The result is in mixed canonical form 'A' * c + 'B' * (L - c)
     with c = ``ortho_center`` (default L // 2)."""
-    trunc_par = to_stopping_condition(trunc_par)
-    dev = resolve_device(C, device)
-    C = _host(C)
-    if basis == "C":
-        C = matrix_C2M(C)
-    elif basis != "M":
-        raise ValueError(f"Argument `basis` must be 'M' or 'C', got {basis!r}")
-    C = assert_nambu_correlation(C, "M", atol=trunc_par.svd_min**2)
-    C_dev = torch.as_tensor(np.ascontiguousarray(C), device=dev)
-    L = C.shape[0] // 2
-    if unit_cell_width is None:
-        unit_cell_width = L
-    elif L % unit_cell_width != 0:
-        raise ValueError(f"{unit_cell_width = } does not divide system size {L}")
+    with profiling.stage("prepare"):
+        trunc_par = to_stopping_condition(trunc_par)
+        dev = resolve_device(C, device)
+        C = profiling.to_host(C)
+        if basis == "C":
+            C = matrix_C2M(C)
+        elif basis != "M":
+            raise ValueError(f"Argument `basis` must be 'M' or 'C', got {basis!r}")
+        with profiling.stage("checks/nambu"):
+            C = assert_nambu_correlation(C, "M", atol=trunc_par.svd_min**2)
+        C_dev = profiling.to_device(np.ascontiguousarray(C), dev)
+        L = C.shape[0] // 2
+        if unit_cell_width is None:
+            unit_cell_width = L
+        elif L % unit_cell_width != 0:
+            raise ValueError(f"{unit_cell_width = } does not divide system size {L}")
 
     tensors = [None] * L
     lams = [None] * (L + 1)
     q_bonds = [None] * (L + 1)
     c = ortho_center or L // 2
     logger.info("Central bond %d", c)
-    Schmidt_center = SchmidtVectors.from_correlation_matrix(C_dev, c, trunc_par, basis="M",
-                                                            diag_tol=diag_tol)
-    lams[c] = normalize_SV(Schmidt_center.schmidt_values, logger)
-    q_bonds[c] = Schmidt_center.q_parity(Schmidt_center.pL)
-    total_parity = Schmidt_center.parity()
+    with profiling.stage("centre_cut"):
+        Schmidt_center = SchmidtVectors.from_correlation_matrix(C_dev, c, trunc_par, basis="M",
+                                                                diag_tol=diag_tol)
+        lams[c] = normalize_SV(Schmidt_center.schmidt_values, logger)
+        q_bonds[c] = Schmidt_center.q_parity(Schmidt_center.pL)
+        total_parity = Schmidt_center.parity()
 
     def stream_half(cuts, which, sites, bond_of_site):
         Schmidt = Schmidt_center
@@ -1141,8 +1148,8 @@ def C_to_MPS(C, trunc_par, *, basis: str, diag_tol: float = _DIAG_TOL,
             sizes = [2 * x if which == "L" else 2 * (L - x) for x in block]
             with profiling.stage("eigh_batch"):
                 e_all, v_all = eigh_blocks(C_dev, sizes, which)
-                e_host = e_all.cpu().numpy()
-                v_host = v_all.cpu().numpy()
+                e_host = profiling.to_host(e_all)
+                v_host = profiling.to_host(v_all)
             pairs = []
             for i, x in enumerate(block):
                 s = sizes[i]
@@ -1174,10 +1181,11 @@ def C_to_MPS(C, trunc_par, *, basis: str, diag_tol: float = _DIAG_TOL,
 
     # under a mesh over several cards, a tensor the fill left whole is held
     # by every card (:func:`temfpy_torch.parallel.mesh.replicate_site`)
-    return MPS([fermion_site] * L, [_pmesh.replicate_site(t) for t, _ in tensors], lams,
-               form=["A"] * c + ["B"] * (L - c), bc="finite",
-               unit_cell_width=unit_cell_width, q_bonds=q_bonds,
-               qtotals=[qt for _, qt in tensors])
+    with profiling.stage("assembly"):
+        return MPS([fermion_site] * L, [_pmesh.replicate_site(t) for t, _ in tensors], lams,
+                   form=["A"] * c + ["B"] * (L - c), bc="finite",
+                   unit_cell_width=unit_cell_width, q_bonds=q_bonds,
+                   qtotals=[qt for _, qt in tensors])
 
 
 def C_to_iMPS(C_short, C_long, trunc_par, sites_per_cell: int, cut: int, *, basis: str,
@@ -1200,7 +1208,7 @@ def C_to_iMPS(C_short, C_long, trunc_par, sites_per_cell: int, cut: int, *, basi
     unitary_tol = imps_mod._UNITARY_TOL if unitary_tol is None else unitary_tol
     schmidt_tol = imps_mod._SCHMIDT_TOL if schmidt_tol is None else schmidt_tol
     dev = resolve_device(C_short, device)
-    C_short, C_long = _host(C_short), _host(C_long)
+    C_short, C_long = profiling.to_host(C_short), profiling.to_host(C_long)
     if basis == "C":
         C_short, C_long = matrix_C2M(C_short), matrix_C2M(C_long)
     elif basis != "M":
@@ -1216,8 +1224,8 @@ def C_to_iMPS(C_short, C_long, trunc_par, sites_per_cell: int, cut: int, *, basi
         unit_cell_width = sites_per_cell
     elif sites_per_cell % unit_cell_width != 0:
         raise ValueError(f"{unit_cell_width = } does not divide {sites_per_cell = }")
-    C_short = torch.as_tensor(np.ascontiguousarray(C_short), device=dev)
-    C_long = torch.as_tensor(np.ascontiguousarray(C_long), device=dev)
+    C_short = profiling.to_device(np.ascontiguousarray(C_short), dev)
+    C_long = profiling.to_device(np.ascontiguousarray(C_long), dev)
 
     Schmidt_short = SchmidtVectors.from_correlation_matrix(C_short, cut, trunc_par, basis="M",
                                                            diag_tol=diag_tol)
@@ -1275,6 +1283,7 @@ def H_to_iMPS(H_short, H_long, trunc_par, sites_per_cell: int, cut: int, *, basi
                      unit_cell_width=unit_cell_width, device=dev)
 
 
+@profiling.entry_point
 def H_to_MPS(H, trunc_par, *, basis: str, diag_tol: float = _DIAG_TOL,
              ortho_center: int | None = None, unit_cell_width: int | None = None,
              eigh_chunk: int = 32, device=None) -> MPS:

@@ -124,7 +124,7 @@ chinfo = fermion_site.chinfo
 
 def _idx(a, device) -> torch.Tensor:
     """Host index array (any strides) as an int64 tensor on ``device``."""
-    return torch.as_tensor(np.array(a, np.int64), device=device)
+    return profiling.to_device(np.array(a, np.int64), device)
 
 
 def _classify_spectrum(e: np.ndarray, cutoff: float, order: str, window=None):
@@ -231,7 +231,7 @@ class SchmidtModes:
         V = frame[rows][:, _idx(np.maximum(cols, 0), frame.device)]
         if (cols >= 0).all():
             return V
-        return V * torch.as_tensor(cols >= 0, device=frame.device).to(V.dtype)[None, :]
+        return V * profiling.to_device(cols >= 0, frame.device).to(V.dtype)[None, :]
 
     @property
     def vL(self):
@@ -413,7 +413,7 @@ class SchmidtModes:
             sign = np.ones(k)
             sign[1::2] = -1
             fcR = _idx(colR[ixR["entangled"]], dev)
-            frameR[x:, fcR] *= torch.as_tensor(sign, device=dev).to(frameR.dtype)[None, :]
+            frameR[x:, fcR] *= profiling.to_device(sign, dev).to(frameR.dtype)[None, :]
         elif eL is not None:
             e, k = eL_can, kL
         else:
@@ -421,7 +421,7 @@ class SchmidtModes:
 
         logger.info("%d Schmidt modes found", k)
         if n_fermion is None:
-            n_fermion = int(np.round(float(torch.trace(C).real)))
+            n_fermion = int(np.round(profiling.item(torch.trace(C).real)))
         # borderline (widened) modes may sit at/below 0 or at/above 1 within
         # solver noise; clip so Schmidt weights stay valid
         e = np.clip(np.asarray(e, float), 0.0, 1.0)
@@ -444,11 +444,11 @@ class SchmidtModes:
         eL = vL_raw = eR = vR_raw = None
         if "L" in which:
             e_all, v_all = eigh_blocks(C, [x], "L")
-            eL = e_all[0, :x].cpu().numpy()
+            eL = profiling.to_host(e_all[0, :x])
             vL_raw = v_all[0]
         if "R" in which:
             e_all, v_all = eigh_blocks(C, [L - x], "R")
-            eR = e_all[0, : L - x].cpu().numpy()
+            eR = profiling.to_host(e_all[0, : L - x])
             vR_raw = v_all[0]
         return cls.from_eigh(C, x, trunc_par, eL=eL, vL_raw=vL_raw, eR=eR, vR_raw=vR_raw,
                              diag_tol=diag_tol)
@@ -1210,8 +1210,7 @@ def _overlap_group(plans):
     dev = plans[0]["frame_bra"].device
     fb = torch.stack([p["frame_bra"] for p in plans])
     fk = torch.stack([p["frame_ket"] for p in plans])
-    desc = [torch.as_tensor(np.stack([p["desc"][d] for p in plans]), device=dev)
-            for d in range(8)]
+    desc = [profiling.to_device(np.stack([p["desc"][d] for p in plans]), dev) for d in range(8)]
     kb, mode = plans[0]["kb"], plans[0]["fields"]["mode"]
     # under a mesh the sites split over its "pairs" axis
     return _pmesh.map_shards(lambda *a: site_overlap_schur(*a, kb=kb, mode=mode), (fb, fk, *desc))
@@ -1251,7 +1250,7 @@ def _fill_group(Ms, dets, plans, shape_b, buf, slots):
     dev = Ms[0].device
 
     def up(a):
-        return torch.as_tensor(np.stack(a), device=dev)
+        return profiling.to_device(np.stack(a), dev)
 
     M, det = torch.stack(Ms), torch.stack(dets)
     occ_b, occ_k = up([p["occ_b"] for p in plans]), up([p["occ_k"] for p in plans])
@@ -1380,7 +1379,7 @@ def _swap_units(datas, units, dev):
     sub-plan) units, up to the pair ids: the sites' sometimes matrices and
     det_always, the classes' tables and the per-side swap tables."""
     def host(name):
-        return torch.as_tensor(np.stack([sub[name] for _, sub in units]), device=dev)
+        return profiling.to_device(np.stack([sub[name] for _, sub in units]), dev)
 
     return (torch.stack([datas[e["i"]].sometimes_matrix for e, _ in units]),
             torch.stack([datas[e["i"]].det_always for e, _ in units]),
@@ -1415,7 +1414,7 @@ def _swap_stages(datas, fill_plans, bufs, slot_of):
     dev = datas[0].sometimes_matrix.device
 
     def up(a):
-        return torch.as_tensor(a, device=dev)
+        return profiling.to_device(a, dev)
 
     with profiling.stage("fill/swap_tables"):
         groups: dict = {}
@@ -1432,7 +1431,7 @@ def _swap_stages(datas, fill_plans, bufs, slot_of):
                 e["tables"] = (D0[t], G[t], P[t], T2[t], T3[t])
             order += es
             screen.append(torch.stack([D0.abs().to(torch.float64), torch.maximum(gmax, tmax)]))
-        d0_gm = torch.cat(screen, dim=1).cpu().numpy()
+        d0_gm = profiling.to_host(torch.cat(screen, dim=1))
         for e, d0, gm in zip(order, d0_gm[0], d0_gm[1]):
             e["forced"] = bool(d0 < 1e-12 or gm > _SWAP_GMAX)
 
@@ -1459,7 +1458,7 @@ def _swap_stages(datas, fill_plans, bufs, slot_of):
             probed += us
             vals.append(torch.stack([sw, dr]))
         if vals:
-            sw_dr = torch.cat(vals, dim=1).cpu().numpy()
+            sw_dr = profiling.to_host(torch.cat(vals, dim=1))
             checks: dict = {}
             for t, (e, _sub) in enumerate(probed):
                 checks.setdefault(id(e), (e, []))[1].append((sw_dr[0, t], sw_dr[1, t]))
@@ -1498,26 +1497,26 @@ def _swap_stages(datas, fill_plans, bufs, slot_of):
 
 
 def _to_device(x, device) -> torch.Tensor:
-    dev = resolve_device(x, device)
-    if isinstance(x, torch.Tensor):
-        return x.to(dev)
-    return torch.as_tensor(np.asarray(x), device=dev)
+    return profiling.to_device(x if isinstance(x, torch.Tensor) else np.asarray(x),
+                               resolve_device(x, device))
 
 
+@profiling.entry_point
 def correlation_matrix(H, N: int | None = None, *, device=None):
     r"""Ground-state correlation matrix C_ij = <c_j^dagger c_i> of a
     mean-field Hamiltonian (reference slater.py:1150-1180): one ``eigh``
     on ``device`` (default: H's device for a tensor, else ``cuda``,
     :func:`~temfpy_torch.config.default_device`).  Returns (C, N); a
     complex C whose imaginary part is below 1e-14 becomes real."""
-    H = _to_device(H, device)
-    e, v = torch.linalg.eigh(H)
-    if N is None:
-        N = int((e < 0).sum().item())
-    v = v[:, :N]
-    C = v @ HT(v)
-    if C.is_complex() and float(C.imag.abs().max()) < 1e-14:
-        C = C.real.contiguous()
+    with profiling.stage("correlation_matrix"):
+        H = _to_device(H, device)
+        e, v = torch.linalg.eigh(H)
+        if N is None:
+            N = int(profiling.item((e < 0).sum()))
+        v = v[:, :N]
+        C = v @ HT(v)
+        if C.is_complex() and profiling.item(C.imag.abs().max()) < 1e-14:
+            C = C.real.contiguous()
     return C, N
 
 
@@ -1541,7 +1540,7 @@ def _exact_frames(C, sizes, which, chunk, e_list, col0_list, frame_list, todo):
     """Full frames of the exact device frontend (one batched eigh) for the
     cuts ``todo``, written into the three lists."""
     e_all, v_all = eigh_blocks(C, [sizes[j] for j in todo], which, chunk=chunk)
-    e_host = e_all.cpu().numpy()
+    e_host = profiling.to_host(e_all)
     for t, j in enumerate(todo):
         e_list[j], col0_list[j], frame_list[j] = e_host[t, : sizes[j]], 0, v_all[t]
 
@@ -1593,6 +1592,7 @@ def _schmidt_vectors_batched(C: torch.Tensor, cuts, which: str, trunc_par,
     return out
 
 
+@profiling.entry_point
 def C_to_MPS(C, trunc_par, *, diag_tol: float = _DIAG_TOL, ortho_center: int | None = None,
              spinful: Literal["simple", "PH", None] = None,
              unit_cell_width: int | None = None, eigh_chunk: int = 64, device=None) -> MPS:
@@ -1610,37 +1610,40 @@ def C_to_MPS(C, trunc_par, *, diag_tol: float = _DIAG_TOL, ortho_center: int | N
     The result is in mixed canonical form 'A' * c + 'B' * (L - c) with
     c = ``ortho_center`` (default L // 2).
     """
-    trunc_par = to_stopping_condition(trunc_par)
-    if spinful == "simple":
-        C = spinful_correlation_matrix(C, False)
-    elif spinful == "PH":
-        C = spinful_correlation_matrix(C, True)
-    elif spinful is not None:
-        raise ValueError(f"`spinful` must be 'simple', 'PH', or `None`, got {spinful!r}")
-    C = _to_device(C, device)
-    L = C.shape[0]
-    if C.shape != (L, L):
-        raise ValueError(f"Got non-square {tuple(C.shape)} correlation matrix")
-    if unit_cell_width is None:
-        unit_cell_width = L
-    elif L % unit_cell_width != 0:
-        raise ValueError(f"{unit_cell_width = } does not divide system size {L}")
-    n_fermion = int(np.round(float(torch.trace(C).real)))
-    _reset_swap_stats()
-    reset_rsf_stats()
-    # one host copy of C serves the FW sweep of every block of both
-    # half-streams (the sweep is cached by the matrix's values); the
-    # randomized frontend, where on, comes first and needs none
-    C_host = (C.cpu().numpy() if _pmesh.active_mesh() is None and use_fw(C, L) and not use_rsf(C)
-              else None)
+    with profiling.stage("prepare"):
+        trunc_par = to_stopping_condition(trunc_par)
+        if spinful == "simple":
+            C = spinful_correlation_matrix(C, False)
+        elif spinful == "PH":
+            C = spinful_correlation_matrix(C, True)
+        elif spinful is not None:
+            raise ValueError(f"`spinful` must be 'simple', 'PH', or `None`, got {spinful!r}")
+        C = _to_device(C, device)
+        L = C.shape[0]
+        if C.shape != (L, L):
+            raise ValueError(f"Got non-square {tuple(C.shape)} correlation matrix")
+        if unit_cell_width is None:
+            unit_cell_width = L
+        elif L % unit_cell_width != 0:
+            raise ValueError(f"{unit_cell_width = } does not divide system size {L}")
+        n_fermion = int(np.round(profiling.item(torch.trace(C).real)))
+        _reset_swap_stats()
+        reset_rsf_stats()
+        # one host copy of C serves the FW sweep of every block of both
+        # half-streams (the sweep is cached by the matrix's values); the
+        # randomized frontend, where on, comes first and needs none
+        C_host = (profiling.to_host(C)
+                  if _pmesh.active_mesh() is None and use_fw(C, L) and not use_rsf(C) else None)
 
     tensors = [None] * L
     lams = [None] * (L + 1)
     q_bonds = [None] * (L + 1)
     c = ortho_center or L // 2
-    Schmidt_center = SchmidtVectors.from_correlation_matrix(C, c, trunc_par, diag_tol=diag_tol)
-    lams[c] = normalize_SV(Schmidt_center.schmidt_values, logger)
-    q_bonds[c] = Schmidt_center.q_left
+    with profiling.stage("centre_cut"):
+        Schmidt_center = SchmidtVectors.from_correlation_matrix(C, c, trunc_par,
+                                                                diag_tol=diag_tol)
+        lams[c] = normalize_SV(Schmidt_center.schmidt_values, logger)
+        q_bonds[c] = Schmidt_center.q_left
 
     def stream_half(cuts, which, sites, bond_of_site):
         Schmidt = Schmidt_center
@@ -1672,10 +1675,11 @@ def C_to_MPS(C, trunc_par, *, diag_tol: float = _DIAG_TOL, ortho_center: int | N
 
     # under a mesh over several cards, a tensor the fill left whole is held
     # by every card (:func:`temfpy_torch.parallel.mesh.replicate_site`)
-    return MPS([fermion_site] * L, [_pmesh.replicate_site(t) for t, _ in tensors], lams,
-               form=["A"] * c + ["B"] * (L - c), bc="finite",
-               unit_cell_width=unit_cell_width, q_bonds=q_bonds,
-               qtotals=[qt for _, qt in tensors])
+    with profiling.stage("assembly"):
+        return MPS([fermion_site] * L, [_pmesh.replicate_site(t) for t, _ in tensors], lams,
+                   form=["A"] * c + ["B"] * (L - c), bc="finite",
+                   unit_cell_width=unit_cell_width, q_bonds=q_bonds,
+                   qtotals=[qt for _, qt in tensors])
 
 
 def C_to_iMPS(C_short, C_long, trunc_par, sites_per_cell: int, cut: int, *,
@@ -1793,6 +1797,7 @@ def H_to_iMPS(H_short, H_long, trunc_par, sites_per_cell: int, cut: int, *,
                      offset=offset, unit_cell_width=unit_cell_width, device=dev)
 
 
+@profiling.entry_point
 def H_to_MPS(H, trunc_par, *, diag_tol: float = _DIAG_TOL, ortho_center: int | None = None,
              spinful: Literal["simple", "PH", None] = None, unit_cell_width: int | None = None,
              device=None) -> MPS:

@@ -18,19 +18,13 @@ from typing import Literal
 
 import numpy as np
 
+from . import profiling
 from .utils import HT
 from .config import DIAG_TOL as _DIAG_TOL  # noqa: F401  (re-export, ref testing.py:15)
 
 TEST_ACTION: Literal["raise", "warn", "pass"] = "warn"
 """How library-internal checks behave: "raise" AssertionError, "warn" (default)
 a :class:`ComparisonWarning`, or "pass" (skip, fastest)."""
-
-
-def _host(x) -> np.ndarray:
-    """numpy copy of a host array or a (device) torch tensor."""
-    if hasattr(x, "detach"):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
 
 
 class ComparisonWarning(Warning):
@@ -123,11 +117,11 @@ def check_schmidt_decomposition(modes, C, diag_tol: float = _DIAG_TOL):
     if TEST_ACTION == "pass":  # skip all computation
         return
 
-    C = _host(C)
+    C = profiling.to_host(C)
     tol = dict(rtol=0, atol=diag_tol)
 
-    vL = None if modes.vL is None else _host(modes.vL)
-    vR = None if modes.vR is None else _host(modes.vR)
+    vL = None if modes.vL is None else profiling.to_host(modes.vL)
+    vR = None if modes.vR is None else profiling.to_host(modes.vR)
 
     if vL is not None:
         N = len(vL)
@@ -143,8 +137,8 @@ def check_schmidt_decomposition(modes, C, diag_tol: float = _DIAG_TOL):
     if vL is not None and vR is not None:
         assert n == N, f"Inconsistent sizes ({N} + {M} != {len(C)})"
         SV = np.asarray(modes.singular_values)
-        vLE = _host(modes.vL_entangled)
-        vRE = _host(modes.vR_entangled)
+        vLE = profiling.to_host(modes.vL_entangled)
+        vRE = profiling.to_host(modes.vR_entangled)
         # projected contract: the entangled modes must SVD C_LR *within
         # their span*.  The full reconstruction (SV vLE) vRE^H = C_LR used
         # by the reference (testing.py:172-177) has an intrinsic residual
